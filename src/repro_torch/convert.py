@@ -1,7 +1,8 @@
 """Carry the reference's state across to the port.
 
 The system has no weights: its state is the data graph, the pattern
-queries and, on the resident path, the packed RIG matrix on the device.
+queries, the packed data graph of the whole-graph matcher and, on the
+resident path, the packed RIG matrix on the device.
 These functions take plain numpy arrays and tuples (for example the
 fields of a reference ``DataGraph`` or the matrix its resident packing
 returns) and build the port's objects from them, without importing the
@@ -14,9 +15,12 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
 from .core.graph import DataGraph
 from .core.query import PatternQuery, QueryEdge
-from .torchgm.frontier import ResidentIntersector
+from .torchgm.device_graph import DeviceGraph
+from .torchgm.frontier import ResidentIntersector, resolve
 
 
 def graph_from_arrays(n: int, labels, num_labels: int, edges) -> DataGraph:
@@ -58,3 +62,26 @@ def resident_from_packed(matrix32: np.ndarray, fwd_off: List[int],
     return ResidentIntersector(matrix32, [int(o) for o in fwd_off],
                                [int(o) for o in bwd_off], int(zero_row),
                                key=key, device=device)
+
+
+def device_graph_from_packed(n: int, n_pad: int, labels, adj, adj_t, reach,
+                             reach_t, device=None) -> DeviceGraph:
+    """The whole-graph matcher's packed data graph from numpy arrays (for
+    example the fields of a reference ``DeviceGraph``): ``labels`` int32
+    ``(n_pad,)`` and four uint32 ``(n_pad, n_pad / 32)`` matrices,
+    uploaded as one stack to ``device``."""
+    mats = [np.ascontiguousarray(m) for m in (adj, reach, adj_t, reach_t)]
+    for m in mats:
+        if m.dtype not in (np.uint32, np.int32) or m.shape != (n_pad,
+                                                                n_pad // 32):
+            raise ValueError(f"each matrix must be uint32 ({n_pad}, "
+                             f"{n_pad // 32}), got {m.dtype} {m.shape}")
+    labels = np.array(labels, dtype=np.int32)
+    if labels.shape != (n_pad,):
+        raise ValueError(f"labels must have shape ({n_pad},)")
+    dev = resolve(device)
+    stack = torch.from_numpy(np.stack([m.view(np.int32) for m in mats]))
+    return DeviceGraph(n=n, n_pad=n_pad,
+                       labels=torch.from_numpy(labels).to(dev),
+                       stack=stack.to(dev),
+                       nbytes=labels.nbytes + stack.numel() * 4)

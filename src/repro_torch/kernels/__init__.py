@@ -1,5 +1,8 @@
-# Hand-written CUDA kernels of the MJoin hot path, each with its plain
-# PyTorch version beside it (ref.py) and a launch count (_build):
+# Hand-written CUDA kernels of the MJoin hot path and the whole-graph
+# double simulation, each with its plain PyTorch version beside it (ref.py)
+# and a launch count (_build):
+#   bitmm.bitmm                       — boolean matrix product, bit-packed
+#                                       left operand (threshold or sum)
 #   gather_intersect.gather_intersect — resident-row gather + K-way AND +
 #                                       popcount
 #   gather_intersect.expand_pairs     — set bits -> (row, column) pages

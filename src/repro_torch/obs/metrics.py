@@ -2,8 +2,8 @@
 
 One :class:`MetricsRegistry` holds every metric of a subsystem (the module
 global :data:`REGISTRY` is the process-wide default; each
-engine owns its own so per-engine counters stay isolated and
-testable).  Metrics are keyed by ``(name, labels)`` —
+:class:`~repro_torch.engine.engine.Engine` owns its own so per-engine counters
+stay isolated and testable).  Metrics are keyed by ``(name, labels)`` —
 ``registry.counter("cache_hits", cache="plan")`` returns the same
 :class:`Counter` object on every call, so hot paths can either hold the
 object or go through the registry.
@@ -11,7 +11,7 @@ object or go through the registry.
 ``snapshot()`` takes an *atomic* point-in-time copy under the registry
 lock — the fix for torn reads when concurrent streams finalize while other
 queries mutate shared counters (see ``EngineStats``).  Exporters
-(Prometheus text, JSON) come with the engine in a later part of the port.
+(Prometheus text, JSON) live in :mod:`repro_torch.obs.export`.
 """
 
 from __future__ import annotations
@@ -133,7 +133,9 @@ class Histogram:
         both bucket edges clamped to the *observed* ``[vmin, vmax]`` — so
         a single-sample histogram reports the sample itself, and the
         decade-wide default buckets can't report a value outside the data.
-        This estimate's error is bounded by the bucket width."""
+        For guaranteed relative error use
+        :class:`repro_torch.obs.sketch.QuantileSketch`; this estimate's error is
+        bounded by the bucket width."""
         if self.count == 0:
             return None
         q = min(1.0, max(0.0, q))

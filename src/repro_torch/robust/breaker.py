@@ -1,6 +1,7 @@
 """Device circuit breaker: retry with backoff, then route host-only.
 
-Wraps every governed device dispatch (the ``intersect`` and resident
+Wraps every governed device dispatch (the whole-graph ``TorchGM`` matcher
+and its ``bitmm`` kernel, the ``intersect`` and resident
 ``gather_intersect`` / ``expand_pairs`` CUDA kernel calls) behind one
 :class:`CircuitBreaker`.  Only :class:`TransientError` exceptions (injected faults)
 are retried and counted as failures; any other exception, such as a CUDA
@@ -69,6 +70,7 @@ class CircuitBreaker:
         self._probe_inflight = False
         self._gauge = None
         self._retry_counter = None
+        self._recorder = None
 
     # -------------------------------------------------------------- metrics
     def bind_metrics(self, registry, prefix: str = "engine_"
@@ -80,10 +82,27 @@ class CircuitBreaker:
         self._retry_counter = registry.counter(prefix + "device_retries")
         return self
 
+    def bind_recorder(self, recorder) -> "CircuitBreaker":
+        """Land every state transition in a flight recorder
+        (:class:`repro_torch.obs.flight.FlightRecorder`) as a
+        ``BreakerEvent``; a transition to ``open`` additionally triggers
+        the recorder's armed incident auto-dump — the ring buffer at that
+        moment holds exactly the requests that led up to the trip."""
+        self._recorder = recorder
+        return self
+
     def _set_state(self, state: str) -> None:
+        old = self.state
         self.state = state
         if self._gauge is not None:
             self._gauge.set(STATE_VALUES[state])
+        if self._recorder is not None and old != state:
+            from ..obs.events import BreakerEvent
+            self._recorder.record(BreakerEvent(
+                old_state=old, new_state=state,
+                consecutive_failures=self.consecutive_failures))
+            if state == OPEN:
+                self._recorder.maybe_autodump("breaker_open")
 
     # ------------------------------------------------------------ state API
     def allow(self) -> bool:

@@ -16,11 +16,12 @@ from repro_torch.core import GM, GMOptions  # noqa: E402
 from repro_torch.data.graphs import random_labeled_graph  # noqa: E402
 from repro_torch.data.queries import random_query_from_graph  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.bitmm import bitmm  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
 from repro_torch.obs.ledger import LEDGER  # noqa: E402
-from repro_torch.torchgm import frontier  # noqa: E402
+from repro_torch.torchgm import TorchGM, frontier  # noqa: E402
 
 RESIDENT = "frontier-device-resident"
 
@@ -106,3 +107,56 @@ def test_resident_executor_charges_full_pair_pages(cuda):
     assert got.rig.release_resident() == res.nbytes
     assert LEDGER.resident.live_bytes() == 0
     LEDGER.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b,density", [
+    (128, 256, 8, 0.3), (300, 1184, 8, 0.1), (257, 100, 1, 0.5),
+    (1000, 2048, 128, 0.05), (77, 4096, 13, 0.01), (2051, 32 * 37, 64, 0.2),
+    (64, 33, 3, 0.5), (129, 70000, 9, 0.001)])
+@pytest.mark.parametrize("threshold", [True, False])
+def test_bitmm_kernel_equals_plain(cuda, m, k, b, density, threshold):
+    rng = np.random.default_rng(m + k + b)
+    w = (k + 31) // 32
+    a = _lanes(rng, m, w).to(cuda)
+    keep = torch.from_numpy(rng.random((m, w)) < density * 4).to(cuda)
+    a = torch.where(keep, a, 0)
+    x = torch.from_numpy(rng.random((k, b)) < 0.3).to(cuda)
+    reset_launch_counts()
+    got = bitmm(a, x, threshold=threshold)
+    assert launch_counts().get("bitmm") == 1
+    want = ref.bitmm_ref(a, x, threshold=threshold)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    # a float 0/1 operand and a transposed view give the same product
+    xt = x.t().contiguous().t()
+    assert torch.equal(bitmm(a, xt.float(), threshold=threshold), want)
+
+
+@pytest.mark.cuda
+def test_bitmm_kernel_empty_and_full(cuda):
+    m, k, b = 200, 32 * 41, 8
+    x = torch.ones((k, b), dtype=torch.bool, device=cuda)
+    zero = torch.zeros((m, k // 32), dtype=torch.int32, device=cuda)
+    ones = torch.full((m, k // 32), -1, dtype=torch.int32, device=cuda)
+    assert not bitmm(zero, x).any()
+    assert torch.equal(bitmm(ones, x, threshold=False),
+                       torch.full((m, b), float(k), device=cuda))
+    with pytest.raises(ValueError):
+        bitmm(ones, torch.full((k, b), 2.0, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,seed", [("C", 1), ("H", 2), ("D", 3)])
+def test_torchgm_on_card_equals_host(cuda, qtype, seed):
+    g = random_labeled_graph(400, avg_degree=3.0, n_labels=4, seed=seed)
+    q = random_query_from_graph(g, 4, qtype=qtype, seed=seed)
+    want = GM(g).match(q, GMOptions(enum_method="frontier", limit=None,
+                                    materialize=False))
+    gm = TorchGM(g, block=128, capacity=1 << 16, exact_sim=True)
+    assert gm.device.type == "cuda"
+    reset_launch_counts()
+    got = gm.match(q)
+    assert launch_counts().get("bitmm", 0) >= 4
+    assert not got.overflowed and got.count == want.count
+    [batched] = gm.match_batch([q])
+    assert batched.count == want.count

@@ -65,6 +65,41 @@ print("LEAKED", bad)
     assert "LEAKED []" in out.stdout, out.stdout
 
 
+def test_serve_path_runs_without_jax_or_reference_modules():
+    """The serving path (server, engine, whole-graph matcher, bitmm) on
+    the CPU pin, then ``python -m repro_torch.launch.serve --help``."""
+    code = """
+import runpy, sys
+from repro_torch.torchgm import frontier
+frontier.DEFAULT_DEVICE = "cpu"
+from repro_torch.data.graphs import random_labeled_graph
+from repro_torch.data.queries import random_query_from_graph
+from repro_torch.launch.serve import QueryServer
+g = random_labeled_graph(200, avg_degree=3.0, n_labels=4, seed=1)
+server = QueryServer(g, batch_size=4, capacity=512)
+for i in range(4):
+    server.submit(i, random_query_from_graph(g, 3 + i % 3, qtype="CHD"[i % 3],
+                                             seed=i))
+server.drain()
+assert all(r.status == "done" for r in server.journal.values())
+assert any(r.backend == "device" for r in server.journal.values())
+sys.argv = ["serve", "--help"]
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
 def test_chip_smoke_alone_fails_without_result(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,

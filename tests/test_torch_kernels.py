@@ -18,11 +18,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import bitset as host_bits  # noqa: E402
 from repro.kernels import packed as jpacked  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.bitmm import bitmm_pallas  # noqa: E402
 from repro.kernels.gather_intersect import (expand_pairs as j_expand,  # noqa: E402
                                             gather_intersect_pallas,
                                             gather_intersect_xla)
 from repro.kernels.intersect import intersect_pallas  # noqa: E402
-from repro_torch.kernels import packed  # noqa: E402
+from repro_torch.kernels import ops, packed  # noqa: E402
+from repro_torch.kernels import ref as pref  # noqa: E402
+from repro_torch.kernels.bitmm import bitmm  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
@@ -152,6 +155,89 @@ def test_expand_pairs_matches_jax(n_i):
         assert rid.dtype == cid.dtype == torch.int32
         assert np.array_equal(rid.numpy(), np.asarray(jr))
         assert np.array_equal(cid.numpy(), np.asarray(jc))
+
+
+def test_expand_pairs_chunked_plain_version_matches_jax(monkeypatch):
+    """The plain version unpacks a few rows at a time and stops once it
+    has ``size`` pairs; any chunking gives the JAX answer."""
+    n_i = 70
+    host_rows = np.random.default_rng(11).integers(
+        0, 1 << 63, size=(9, host_bits.n_words(n_i)), dtype=np.uint64)
+    rows32 = np.ascontiguousarray(host_rows).view(np.uint32)
+    total = int(host_bits.unpack(host_rows, n_i).sum())
+    for chunk_bits in (1, n_i, 3 * n_i + 5):
+        monkeypatch.setattr(pref, "_EXPAND_CHUNK_BITS", chunk_bits)
+        for size in (total, total + 5, max(1, total // 2), 1):
+            rid, cid = pref.expand_pairs_ref(lanes(rows32), n_i=n_i,
+                                             size=size)
+            jr, jc = j_expand(jnp.asarray(rows32), n_i=n_i, size=size)
+            assert np.array_equal(rid.numpy(), np.asarray(jr))
+            assert np.array_equal(cid.numpy(), np.asarray(jc))
+
+
+# ------------------------------------------------------------------- bitmm
+def _bitmm_case(seed, m, k, b, density=0.3):
+    rng = np.random.default_rng(seed)
+    dense = rng.random((m, k)) < density
+    return (np.array(jpacked.pack(jnp.asarray(dense))),
+            rng.random((k, b)) < 0.3)
+
+
+@pytest.mark.parametrize("m,k,b", [(128, 256, 8), (256, 1024, 16),
+                                   (512, 2048, 4), (128, 128, 128)])
+@pytest.mark.parametrize("threshold", [True, False])
+def test_bitmm_matches_jax(m, k, b, threshold):
+    a, x = _bitmm_case(m + k + b, m, k, b)
+    want = np.asarray(jref.bitmm_ref(jnp.asarray(a), jnp.asarray(
+        x, jnp.float32), threshold=threshold))
+    pal = np.asarray(bitmm_pallas(jnp.asarray(a), jnp.asarray(x, jnp.float32),
+                                  threshold=threshold, bm=128, bk=128,
+                                  interpret=True))
+    got = bitmm(lanes(a), torch.from_numpy(x), threshold=threshold)
+    assert got.dtype == (torch.bool if threshold else torch.float32)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), (pal > 0) if threshold else pal)
+
+
+def test_bitmm_chunked_plain_version_and_operand_forms(monkeypatch):
+    """The plain version unpacks A one K-chunk at a time; any chunking,
+    a float or transposed 0/1 operand and ``ops.bitmm`` give one answer."""
+    a, x = _bitmm_case(3, 200, 2048, 8)
+    want = np.asarray(jref.bitmm_ref(jnp.asarray(a), jnp.asarray(
+        x, jnp.float32), threshold=False))
+    xt = torch.from_numpy(x)
+    monkeypatch.setattr(pref, "_BITMM_CHUNK_ELEMENTS", 200 * 32 * 3)
+    for operand in (xt, xt.float(), xt.t().contiguous().t()):
+        got = ops.bitmm(lanes(a), operand, threshold=False)
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k", [33, 1000, 32 * 37])
+def test_bitmm_ragged_k_ignores_bits_past_k(k):
+    """K not a multiple of 32: A's bits at column K and above never count,
+    which is the JAX product with X zero-padded to 32 W rows."""
+    a, x = _bitmm_case(k, 77, 32 * ((k + 31) // 32), 5, density=0.5)
+    x[k:] = False
+    for threshold in (True, False):
+        want = np.asarray(jref.bitmm_ref(jnp.asarray(a), jnp.asarray(
+            x, jnp.float32), threshold=threshold))
+        got = bitmm(lanes(a), torch.from_numpy(x[:k]), threshold=threshold)
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_bitmm_empty_full_and_rejects_non_binary():
+    m, k, b = 128, 256, 8
+    zero = torch.zeros((m, k // 32), dtype=torch.int32)
+    ones = torch.full((m, k // 32), -1, dtype=torch.int32)
+    x = torch.ones((k, b))
+    assert not bitmm(zero, x).any()
+    assert torch.equal(bitmm(ones, x, threshold=False),
+                       torch.full((m, b), float(k)))
+    for fn in (bitmm, pref.bitmm_ref):
+        with pytest.raises(ValueError, match="0/1"):
+            fn(ones, torch.full((k, b), 0.5))
+    with pytest.raises(ValueError):
+        bitmm(ones, torch.ones((k + 32, b)))
 
 
 # ------------------------------------------------------------ wrapper checks
