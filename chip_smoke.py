@@ -28,16 +28,31 @@
    of the resident ``GM.match`` method), at least one must be answered on
    the device without overflow, and ``bitmm`` and ``expand_pairs`` must be
    launched (counts reset just before the phase and read just after).
-4. Holds each kernel to its plain PyTorch version on the card, exactly, on
+4. Closure path, on the same graph object, after the serve path's engine
+   is freed: ``TorchGM(graph, closure_on_device=True)`` squares the
+   reachability matrix out of the uploaded adjacency with 17
+   ``closure_step`` launches (the host index is not consulted) and
+   transposes it on the card.  Its whole device stack must equal, byte
+   for byte, that of a ``TorchGM`` built from the host index; both answer
+   the serve path's 12 requests through ``match_batch`` in batches of 8
+   and 4, with equal counts and overflow flags, and counts equal to the
+   host ``GM``'s where nothing overflowed.  Prints ``closure_s``, each
+   step's kernel time (CUDA events), the transpose time, the step after
+   which R stopped changing (found after the timed run) and the bytes
+   shipped.
+5. Holds each kernel to its plain PyTorch version on the card, exactly, on
    the largest input its path gave it (``expand_pairs``: also the serve
-   path's last frontier page) and on ragged edge cases, and times
-   both with CUDA events beside the kernel's bound: ``ms`` is the kernel's
-   device time per call with a cold L2 (each call captured in a CUDA
-   graph behind a write of a buffer larger than L2, whose own time is
-   replayed alone and subtracted), ``warm_ms`` the same without the
-   flush, ``eager_ms`` the wrapper called eagerly (host overhead
-   included), ``plain_ms`` the plain version eagerly.
-5. Prints the ``kernels`` JSON line, the card's name and power limit, and
+   path's last frontier page; ``closure_step``: the last step's R) and on
+   ragged edge cases, and times both with CUDA events beside the kernel's
+   bound: ``ms`` is the kernel's device time per call with a cold L2 (each
+   call captured in a CUDA graph behind a write of a buffer larger than
+   L2, whose own time is replayed alone and subtracted), ``warm_ms`` the
+   same without the flush, ``eager_ms`` the wrapper called eagerly (host
+   overhead included), ``plain_ms`` the plain version eagerly,
+   ``library_ms`` one PyTorch call computing the same product where there
+   is one (``closure_step``: ``torch.matmul`` of the unpacked bf16 R by
+   itself).
+6. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without CUDA, or without the
@@ -48,8 +63,10 @@ It imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -64,15 +81,18 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gather_intersect": CSRC + "frontier_kernels.cu",
            "expand_pairs": CSRC + "frontier_kernels.cu",
            "intersect": CSRC + "frontier_kernels.cu",
-           "bitmm": CSRC + "bitmm.cu"}
+           "bitmm": CSRC + "bitmm.cu",
+           "closure_step": CSRC + "closure.cu"}
 REPLACES = {
     "gather_intersect": "src/repro/kernels/gather_intersect.py:96",
     "expand_pairs": "src/repro/kernels/gather_intersect.py:124",
     "intersect": "src/repro/kernels/intersect.py:79",
     "bitmm": "src/repro/kernels/bitmm.py:76",
+    "closure_step": "src/repro/kernels/closure.py:75",
 }
 GM_KERNELS = ("gather_intersect", "expand_pairs", "intersect")
 SERVE_KERNELS = ("bitmm", "expand_pairs")
+CLOSURE_KERNELS = ("closure_step", "bitmm", "expand_pairs")
 # two of the four queries of the first slice (D s1: the largest resident
 # RIG; H s0: the smallest), so that the serve path fits the time limit
 QUERIES = (("D", 1), ("H", 0))
@@ -139,15 +159,22 @@ def replay_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def cold_ms(torch, fn, flush) -> float:
+def cold_ms(torch, fn, flush, iters: int = 20) -> float:
     """Device time per call with a cold L2: each call follows a write of
     ``flush`` (larger than L2) in the graph; the flushes alone are timed
     the same way and subtracted."""
     def flushed():
         flush.zero_()
         fn()
-    return (replay_ms(torch, flushed, replays=10)
-            - replay_ms(torch, flush.zero_, replays=10))
+    return (replay_ms(torch, flushed, iters=iters, replays=10)
+            - replay_ms(torch, flush.zero_, iters=iters, replays=10))
+
+
+def set_bits(words) -> int:
+    """Set bits of packed int32 lanes, counted a block of rows at a time."""
+    from repro_torch.kernels import packed
+    return sum(int(packed.popcount(words[r0:r0 + 4096]).sum())
+               for r0 in range(0, words.shape[0], 4096))
 
 
 def max_abs_err(got, want) -> int:
@@ -173,6 +200,12 @@ class Capture:
         for module, name, key, size in specs:
             setattr(module, name, self._wrap(key, getattr(module, name),
                                              size))
+
+    def own(self, key):
+        """Replace a kept input's tensors by copies, so that the kept
+        views no longer hold the storage they were cut from."""
+        size, args, kw = self.inputs[key]
+        self.inputs[key] = (size, tuple(a.clone() for a in args), kw)
 
     def _wrap(self, key, fn, size):
         def wrapped(*args, **kw):
@@ -286,8 +319,10 @@ class DeviceCalls:
         self.by_query = {}
         self.calls = []
         self.matcher = None
+        self.cls = cls
+        self.saved = {}
         for name in ("match", "match_batch"):
-            fn = getattr(cls, name)
+            fn = self.saved[name] = getattr(cls, name)
 
             def wrapped(gm, arg, *a, _fn=fn, **kw):
                 before = launch_counts().get("bitmm", 0)
@@ -301,6 +336,13 @@ class DeviceCalls:
                     self.by_query[shape_key(q)] = (r, len(qs), bitmm)
                 return out
             setattr(cls, name, wrapped)
+
+    def restore(self):
+        """Put the matcher's methods back and drop the matcher, so that
+        its device graph can be freed."""
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        self.matcher = None
 
 
 def shape_key(q):
@@ -394,7 +436,8 @@ def serve_path(torch, card: str, graph, gm, capture):
         if total.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serve path")
-    return total, calls.calls
+    calls.restore()
+    return total, calls.calls, queries, refs, exact
 
 
 def exact_counts(card: str, gm, queries, refs, journal, capture):
@@ -428,6 +471,153 @@ def exact_counts(card: str, gm, queries, refs, journal, capture):
     return out
 
 
+class ClosureSteps:
+    """Times each ``closure_step`` call of ``transitive_closure`` with CUDA
+    events and each ``packed.transpose`` call the same way, and keeps the
+    last step's input R (the densest input of the path; no later step
+    writes its buffer).  The wrappers and their launch counts are
+    untouched."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import ops, packed
+        self.steps, self.transposes, self.last = [], [], None
+        self._saved = [(ops, "closure_step", ops.closure_step),
+                       (packed, "transpose", packed.transpose)]
+
+        def timed(events, fn, keep):
+            def wrapped(r, *a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(r, *a, **kw)
+                end.record()
+                events.append((start, end))
+                if keep:
+                    self.last = r
+                return out
+            return wrapped
+
+        ops.closure_step = timed(self.steps, ops.closure_step, True)
+        packed.transpose = timed(self.transposes, packed.transpose, False)
+
+    def restore(self):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+    @staticmethod
+    def ms(events):
+        return [start.elapsed_time(end) for start, end in events]
+
+
+def closure_path(torch, card: str, graph, queries, refs, exact):
+    """The on-device closure: ``TorchGM(closure_on_device=True)`` against
+    a host-index ``TorchGM`` (byte-equal stacks, equal answers) and the
+    host ``GM``.  Returns the path's launch counts, the last step's R and
+    what the kernel row reports of the path."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.closure import closure_step
+    from repro_torch.torchgm.matcher import TorchGM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    live0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opts = dict(exact_sim=True, max_q=BATCH, max_e=16, capacity=CAPACITY)
+    index_calls = []
+    build_index = graph.reachability
+
+    def counted_index():
+        index_calls.append(1)
+        return build_index()
+
+    graph.reachability = counted_index
+    timer = ClosureSteps(torch)
+    reset_launch_counts()                # just before the closure path
+    t0 = time.perf_counter()
+    cgm = TorchGM(graph, closure_on_device=True, **opts)
+    t1 = time.perf_counter()
+    timer.restore()
+    built = launch_counts()
+    del graph.reachability
+    if index_calls:
+        raise AssertionError("the closure path built the host reachability "
+                             "index")
+    hgm = TorchGM(graph, **opts)
+    steps = math.ceil(math.log2(cgm.dg.n_pad))     # 17 at scale 1.0
+    if built.get("closure_step", 0) != steps:
+        raise AssertionError(f"the closure made {built.get('closure_step')} "
+                             f"closure_step launches, not {steps}")
+    if not (torch.equal(cgm.dg.stack, hgm.dg.stack)
+            and torch.equal(cgm.dg.labels, hgm.dg.labels)):
+        raise AssertionError("the closure-built device graph differs from "
+                             "the host-index one")
+    results = []
+    for lo, hi in ((0, BATCH), (BATCH, len(queries))):
+        batch = queries[lo:hi]
+        results += list(zip(cgm.match_batch(batch), hgm.match_batch(batch)))
+    torch.cuda.synchronize()
+    total = launch_counts()              # just after the closure path
+    peak = torch.cuda.max_memory_allocated()
+
+    finished = 0
+    for i, (q, (c, h)) in enumerate(zip(queries, results)):
+        if (c.count, c.overflowed) != (h.count, h.overflowed):
+            raise AssertionError(f"request {i}: closure-built TorchGM count "
+                                 f"{c.count} overflow {c.overflowed} vs "
+                                 f"host-index {h.count} {h.overflowed}")
+        want = exact.get(i, None if refs[i].truncated else refs[i].count)
+        if not c.overflowed and want is not None and c.count != want:
+            raise AssertionError(f"request {i}: closure-built TorchGM count "
+                                 f"{c.count} vs host GM {want}")
+        finished += not c.overflowed
+        log(f"[{card}] closure path request {i} {q}: count {c.count}, "
+            f"overflow {c.overflowed} (host-index TorchGM the same; host GM "
+            f"{want if want is not None else 'stops at its limit'}); "
+            f"simulation {c.sim_s:.4f} s / {c.sim_passes} passes, enumerate "
+            f"{c.enumerate_s:.4f} s")
+    if finished == 0:
+        raise AssertionError("no closure-path request finished without "
+                             "overflow")
+    for name in CLOSURE_KERNELS:
+        if total.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"closure path")
+    if total["closure_step"] != steps:
+        raise AssertionError(f"closure_step launched {total['closure_step']}"
+                             f" times on the closure path, not {steps}")
+    step_ms = ClosureSteps.ms(timer.steps)
+    transpose_ms = ClosureSteps.ms(timer.transposes)
+
+    # outside the timings and the counted run: which steps changed R
+    changed = []
+    r = cgm.dg.adj
+    for _ in range(steps):
+        nxt = closure_step(r)
+        changed.append(not torch.equal(nxt, r))
+        r = nxt
+    if not torch.equal(r, cgm.dg.reach):
+        raise AssertionError("re-running the steps gave another closure")
+    last_change = max((k + 1 for k, c in enumerate(changed) if c), default=0)
+    nnz = set_bits(cgm.dg.reach)
+    shipped = cgm.upload_bytes
+    log(f"[{card}] closure path: n_pad {cgm.dg.n_pad}; closure_s "
+        f"{cgm.closure_s:.4f} s (TorchGM construction {t1 - t0:.4f} s: host "
+        f"repack {cgm.build_s:.4f} s, upload {cgm.upload_s:.4f} s); "
+        f"closure_step ms per step {[round(t, 4) for t in step_ms]} (sum "
+        f"{sum(step_ms):.4f}); transpose ms {transpose_ms}; R stopped "
+        f"changing after step {last_change} of {steps} (changed: {changed});"
+        f" closure set bits {nnz}; shipped {shipped} B (host-index TorchGM "
+        f"{hgm.upload_bytes} B, difference {hgm.upload_bytes - shipped} B);"
+        f" device memory live before {live0} B, peak {peak} B; stacks equal"
+        f" byte for byte; {finished}/{len(queries)} requests without "
+        f"overflow")
+    log(f"closure path launches: {json.dumps(total, sort_keys=True)}")
+    info = {"closure_s": cgm.closure_s, "step_ms": step_ms,
+            "transpose_ms": transpose_ms, "steps_changed": last_change,
+            "steps": steps, "shipped_bytes": shipped}
+    return total, timer.last, info
+
+
 # ---------------------------------------------------------------- kernels
 def bound(name: str, args, kw):
     """(bytes, operations) the call must move / do on these inputs."""
@@ -451,6 +641,12 @@ def bound(name: str, args, kw):
         # AND + OR per lane and column (threshold); AND + popc + add (sum)
         return (4 * m * w + k * b * x.element_size() + out,
                 m * w * b * (2 if threshold else 3))
+    if name == "closure_step":
+        # R read once, R' written once; the row-OR form ORs one row of W
+        # lanes per set bit of R (the dense product would do N * N * W)
+        (r,) = args
+        n, w = r.shape
+        return 2 * 4 * n * w, set_bits(r) * w
     (and_rows,) = args
     f, w = and_rows.shape
     live = min(w, (kw["n_i"] + 31) // 32)
@@ -460,7 +656,9 @@ def bound(name: str, args, kw):
 def edge_cases(torch, np):
     """Seeded ragged inputs: odd lane counts, K=1, tail bits, cut pages;
     for bitmm M and K off every block, B = 1 and 128, sum mode, all-zero
-    and all-ones A."""
+    and all-ones A; for closure_step N = 32 to 1,056 at densities 0.001 to
+    0.3, all-zero and all-ones R."""
+    from repro_torch.kernels import packed
     rng = np.random.default_rng(7)
 
     def lanes(*shape):
@@ -495,23 +693,81 @@ def edge_cases(torch, np):
     for fill in (0, -1):                        # all-zero and all-ones A
         a = torch.full((300, w), fill, dtype=torch.int32, device="cuda")
         cases.append(("bitmm", (a, binary(32 * w, 8)), {"threshold": False}))
+    # closure_step: N = 96 and 1,056 have lane counts off a multiple of 4
+    for n in (32, 96, 512, 1024, 1056):
+        for density in (0.001, 0.03, 0.3):
+            dense = torch.from_numpy(rng.random((n, n)) < density).cuda()
+            cases.append(("closure_step", (packed.pack(dense),), {}))
+    for fill in (0, -1):                        # all-zero and all-ones R
+        cases.append(("closure_step", (torch.full(
+            (1024, 32), fill, dtype=torch.int32, device="cuda"),), {}))
     return cases
 
 
+def chain_case(torch, closure_step, closure_step_ref) -> None:
+    """A 1,024-node chain needs all of its 10 steps: each changes R, the
+    kernel equals its plain version at each, and the last gives the strict
+    upper triangle."""
+    from repro_torch.kernels import packed
+    n = 1024
+    idx = torch.arange(n - 1, device="cuda")
+    dense = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+    dense[idx, idx + 1] = True
+    r = packed.pack(dense)
+    for step in range(10):
+        nxt = closure_step(r)
+        if not torch.equal(nxt, closure_step_ref(r)):
+            raise AssertionError(f"closure_step disagrees with its plain "
+                                 f"version on the chain at step {step + 1}")
+        if torch.equal(nxt, r):
+            raise AssertionError(f"the chain stopped changing at step "
+                                 f"{step + 1} of 10")
+        r = nxt
+    upper = torch.ones((n, n), dtype=torch.int32, device="cuda").triu(1)
+    if not torch.equal(r, packed.pack(upper.bool())):
+        raise AssertionError("10 steps on the chain did not give its "
+                             "closure")
+
+
+# iterations of each timing: the closure step works on a 727 MB matrix at
+# the epinions graph and its plain version takes about a second
+REPS = {"cold": 20, "warm": 20, "eager": 50, "plain": 10, "plain_warmup": 3}
+CLOSURE_REPS = {"cold": 4, "warm": 4, "eager": 5, "plain": 2,
+                "plain_warmup": 1}
+
+
+def closure_library_ms(torch, r) -> float:
+    """One ``torch.matmul`` of the unpacked bf16 R by itself: the product
+    at the heart of the closure step, as a library computes it."""
+    from repro_torch.kernels import packed
+    n = r.shape[0]
+    dense = torch.empty((n, n), dtype=torch.bfloat16, device="cuda")
+    for r0 in range(0, n, 2048):
+        dense[r0:r0 + 2048] = packed.unpack(r[r0:r0 + 2048], n)
+    out = torch.empty_like(dense)
+    ms = time_ms(torch, lambda: torch.matmul(dense, dense, out=out),
+                 iters=2, warmup=1)
+    del dense, out
+    torch.cuda.empty_cache()
+    return ms
+
+
 def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
-                 inputs):
+                 inputs, closure_info):
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitmm import bitmm
+    from repro_torch.kernels.closure import closure_step
     from repro_torch.kernels.gather_intersect import (expand_pairs,
                                                       gather_intersect)
     from repro_torch.kernels.intersect import intersect
 
     kernels = {"gather_intersect": gather_intersect,
                "expand_pairs": expand_pairs, "intersect": intersect,
-               "bitmm": bitmm}
+               "bitmm": bitmm, "closure_step": closure_step}
     plain = {"gather_intersect": ref.gather_intersect_ref,
              "expand_pairs": ref.expand_pairs_ref,
-             "intersect": ref.intersect_ref, "bitmm": ref.bitmm_ref}
+             "intersect": ref.intersect_ref, "bitmm": ref.bitmm_ref,
+             "closure_step": ref.closure_step_ref}
     for name, args, kw in edge_cases(torch, np):
         got = kernels[name](*args, **kw)
         want = plain[name](*args, **kw)
@@ -519,14 +775,16 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
         if max_abs_err(as_tuple(got), as_tuple(want)) != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {[tuple(a.shape) for a in args]} {kw}")
-    log("edge cases: all four kernels equal their plain versions")
+    chain_case(torch, closure_step, ref.closure_step_ref)
+    log(f"edge cases: all {len(kernels)} kernels equal their plain versions "
+        f"(closure_step: also every step of a 1,024-node chain)")
 
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
 
-    def measure(name, args, kw):
+    def measure(name, args, kw, kern=None, reps=REPS):
         """Hold the kernel to its plain version on one input, then time
         both and compute the bound."""
-        kern = kernels[name]
+        kern = kern or kernels[name]
         got = kern(*args, **kw)
         want = plain[name](*args, **kw)
         torch.cuda.synchronize()
@@ -534,17 +792,22 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"(max abs err {err})")
+        del got, want
         nbytes, ops = bound(name, args, kw)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT32_OPS_PER_S * 1e3
         out = {"shape": {k: list(a.shape) for k, a in
                          zip(("a0", "a1"), args)} | kw,
                "max_abs_err": err,
-               "ms": cold_ms(torch, lambda: kern(*args, **kw), flush),
-               "warm_ms": replay_ms(torch, lambda: kern(*args, **kw)),
-               "eager_ms": time_ms(torch, lambda: kern(*args, **kw)),
+               "ms": cold_ms(torch, lambda: kern(*args, **kw), flush,
+                             iters=reps["cold"]),
+               "warm_ms": replay_ms(torch, lambda: kern(*args, **kw),
+                                    iters=reps["warm"]),
+               "eager_ms": time_ms(torch, lambda: kern(*args, **kw),
+                                   iters=reps["eager"]),
                "plain_ms": time_ms(torch, lambda: plain[name](*args, **kw),
-                                   iters=10),
+                                   iters=reps["plain"],
+                                   warmup=reps["plain_warmup"]),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         log(f"[{card}] kernel {name} at {out['shape']}: {out['ms']:.6f} ms "
@@ -556,7 +819,24 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
 
     rows = []
     for name in REPLACES:
-        m = measure(name, *inputs[name][1:])
+        library_ms = None
+        if name == "closure_step":
+            (r,) = inputs[name][1]
+            buf = torch.empty_like(r)       # the timed calls write here
+            m = measure(name, (r,), {},
+                        kern=lambda x: closure_step(x, out=buf),
+                        reps=CLOSURE_REPS)
+            del buf
+            n, w = r.shape
+            log(f"[{card}] kernel closure_step: the dense product would do "
+                f"{n * n * w} word operations per step "
+                f"({n * n * w / INT32_OPS_PER_S * 1e3:.3f} ms at the int32 "
+                f"rate); R holds {set_bits(r)} set bits")
+            library_ms = closure_library_ms(torch, r)
+            log(f"[{card}] kernel closure_step: library torch.matmul of the "
+                f"unpacked bf16 R by itself {library_ms:.3f} ms")
+        else:
+            m = measure(name, *inputs[name][1:])
         by_path = {path: int(counts.get(name, 0))
                    for path, counts in launches.items()}
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -567,7 +847,7 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
                **{k: m[k] for k in ("max_abs_err", "ms", "warm_ms",
                                     "eager_ms", "plain_ms", "bound_ms",
                                     "bound_by")},
-               "library_ms": None, "shape": m["shape"]}
+               "library_ms": library_ms, "shape": m["shape"]}
         if name == "bitmm":
             # (queries, bitmm launches) of each TorchGM call on the serve
             # path: four launches per simulation pass for the whole batch
@@ -578,6 +858,8 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             row["serve"] = serve
             row["max_abs_err"] = max(row["max_abs_err"],
                                      serve["max_abs_err"])
+        if name == "closure_step":
+            row["closure"] = closure_info
         log(f"[{card}] kernel {name}: launches {by_path} (GM.match path per "
             f"query {row['launches_per_query']})")
         rows.append(row)
@@ -641,14 +923,25 @@ def main() -> int:
     t0 = time.perf_counter()
     gm_launches, per_query = gm_path(torch, card, graph, gm)
     t1 = time.perf_counter()
-    serve_launches, device_calls = serve_path(torch, card, graph, gm,
-                                              capture)
+    serve_launches, device_calls, queries, refs, exact = serve_path(
+        torch, card, graph, gm, capture)
+    capture.on = False
+    capture.own("bitmm")                 # drop the serve graph's stack
     t2 = time.perf_counter()
+    closure_launches, last_r, closure_info = closure_path(
+        torch, card, graph, queries, refs, exact)
+    capture.inputs["closure_step"] = (last_r.numel(), (last_r,), {})
+    if args.scale == 1.0 and closure_info["steps"] != 17:
+        raise AssertionError(f"{closure_info['steps']} closure steps at "
+                             f"the full epinions profile, not 17")
+    t3 = time.perf_counter()
     log(f"[{card}] GM.match path {t1 - t0:.1f} s, serve path "
-        f"{t2 - t1:.1f} s")
+        f"{t2 - t1:.1f} s, closure path {t3 - t2:.1f} s")
     rows = kernel_phase(torch, np, card,
-                        {"gm_match": gm_launches, "serve": serve_launches},
-                        per_query, device_calls, capture.inputs)
+                        {"gm_match": gm_launches, "serve": serve_launches,
+                         "closure": closure_launches},
+                        per_query, device_calls, capture.inputs,
+                        closure_info)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

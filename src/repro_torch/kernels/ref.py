@@ -23,6 +23,9 @@ _BITMM_CHUNK_ELEMENTS = 1 << 27
 # whole-graph matcher (65,536 rows of 76,288 bits at epinions) would be
 # 5 GB as bool
 _EXPAND_CHUNK_BITS = 1 << 27
+# rows per block of closure_step_ref: a block's bf16 product at the
+# epinions graph (2,048 x 76,288) is 312 MB, its packing 1.25 GB
+_CLOSURE_ROW_BLOCK = 2048
 
 
 def check_binary(x: torch.Tensor) -> None:
@@ -55,6 +58,33 @@ def bitmm_ref(a_words: torch.Tensor, x: torch.Tensor, *,
         dense = packed.unpack(a_words[:, j0:j1], k1 - k0).to(torch.float32)
         y += dense @ xf[k0:k1]
     return y > 0 if threshold else y
+
+
+def closure_step_ref(r_words: torch.Tensor) -> torch.Tensor:
+    """One squaring step of the transitive closure on packed rows:
+    ``R' = R | (R·R > 0)``, int32 lanes (N, N/32) -> the same shape.
+
+    R is unpacked once as the right operand (N x N, bfloat16 on the card,
+    where the epinions graph's is 11.6 GB, float32 on the CPU at test
+    sizes); the left operand is that matrix a block of rows at a time, so
+    the card never holds a float32 N x N matrix or an N x N product.
+    Each block's product is thresholded, ORed with its own rows and
+    packed.  ``> 0`` is exact whatever the precision of the accumulation:
+    every term is 0 or 1 and non-negative, so a sum is 0 only when every
+    term is, and a positive sum cannot round to 0.
+    """
+    n = r_words.shape[0]
+    dtype = torch.bfloat16 if r_words.is_cuda else torch.float32
+    dense = torch.empty((n, n), dtype=dtype, device=r_words.device)
+    out = torch.empty_like(r_words)
+    blocks = [(r0, min(n, r0 + _CLOSURE_ROW_BLOCK))
+              for r0 in range(0, n, _CLOSURE_ROW_BLOCK)]
+    for r0, r1 in blocks:
+        dense[r0:r1] = packed.unpack(r_words[r0:r1], n)
+    for r0, r1 in blocks:
+        rows = dense[r0:r1]
+        out[r0:r1] = packed.pack(((rows @ dense) > 0) | (rows > 0))
+    return out
 
 
 def intersect_ref(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -6,7 +6,9 @@ bitset algebra — adjacency, reachability closure, and their transposes —
 as int32 lanes padded to a block multiple, plus the node labels, all on
 one device.  The four matrices are views into one ``(4, n_pad, W)``
 stack, allocated once by :func:`from_host`; :func:`stacked_matrices`
-returns that stack itself.
+returns that stack itself.  The closure comes from the host reachability
+index, or is computed on the device from the uploaded adjacency
+(``closure_on_device``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.graph import DataGraph
+from ..kernels import ops, packed
 from ..obs.ledger import get_ledger
 from .frontier import resolve
 
@@ -34,7 +37,9 @@ class DeviceGraph:
                             # [adj, reach, adj_t, reach_t]
     build_s: float = 0.0    # host repack seconds
     upload_s: float = 0.0   # host -> device copy seconds (fenced)
-    nbytes: int = 0         # bytes shipped (labels + the four matrices)
+    closure_s: float = 0.0  # on-device closure + transpose seconds (fenced;
+                            # 0 when the closure came from the host index)
+    nbytes: int = 0         # bytes shipped (labels + the matrices uploaded)
 
     @property
     def adj(self) -> torch.Tensor:          # children rows
@@ -74,15 +79,19 @@ def from_host(graph: DataGraph, block: int = 512,
               closure_on_device: bool = False, device=None) -> DeviceGraph:
     """Pack ``graph`` for the whole-graph matcher and upload it to
     ``device`` (resolved as the executors do: the card unless the CPU is
-    pinned).  Each matrix is the host's packed rows re-viewed as uint32
-    lanes and zero-padded to ``(n_pad, n_pad / 32)``, byte-equal to the
-    JAX package's ``from_host``; the ledger's ``label_build`` h2d charge
-    is the same byte count.  The closure comes from the host
-    reachability index."""
-    if closure_on_device:
-        raise NotImplementedError(
-            "closure_on_device=True needs the closure_step kernel, which is "
-            "not ported yet (ROADMAP.md, Queue 2)")
+    pinned).  Each uploaded matrix is the host's packed rows re-viewed as
+    uint32 lanes and zero-padded to ``(n_pad, n_pad / 32)``, byte-equal to
+    the JAX package's ``from_host``.
+
+    By default the closure comes from the host reachability index, and the
+    ledger's ``label_build`` h2d charge is the JAX package's: labels and
+    four matrices.  With ``closure_on_device`` the host index is never
+    built: ``transitive_closure`` squares the uploaded adjacency on the
+    device into ``reach`` and :func:`repro_torch.kernels.packed.transpose`
+    writes ``reach_t``, so only labels, ``adj`` and ``adj_t`` are shipped
+    and charged (the JAX package charges all four matrices there too,
+    because it pulls the closure back to the host and uploads it again).
+    ``closure_s`` is that device work, ending at a fenced sync."""
     dev = resolve(device)
     t0 = time.perf_counter()
     n = graph.n
@@ -90,24 +99,39 @@ def from_host(graph: DataGraph, block: int = 512,
     w = n_pad // 32
     labels = np.full(n_pad, PAD_LABEL, dtype=np.int32)
     labels[:n] = graph.labels
-    ridx = graph.reachability()
-    host = [_lanes(m, n) for m in (graph.adj_bits(), ridx.reach_bits,
-                                   graph.adj_bits_t(), ridx.bits_t())]
+    if closure_on_device:
+        host = {0: graph.adj_bits(), 2: graph.adj_bits_t()}
+    else:
+        ridx = graph.reachability()
+        host = {0: graph.adj_bits(), 1: ridx.reach_bits,
+                2: graph.adj_bits_t(), 3: ridx.bits_t()}
+    host = {i: _lanes(m, n) for i, m in host.items()}
     t1 = time.perf_counter()
     stack = torch.zeros((4, n_pad, w), dtype=torch.int32, device=dev)
-    for i, lanes in enumerate(host):
+    for i, lanes in host.items():
         stack[i, :lanes.shape[0], :lanes.shape[1]] = lanes.to(dev)
     if n % 32:          # bits at n and above never count: clear the tail
         stack[:, :, n // 32] &= (1 << (n % 32)) - 1
     labels_t = torch.from_numpy(labels).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _fence(dev)
     t2 = time.perf_counter()
-    shipped = labels.nbytes + 4 * n_pad * w * 4
+    closure_s = 0.0
+    if closure_on_device:
+        ops.transitive_closure(stack[0], out=stack[1])
+        packed.transpose(stack[1], out=stack[3])
+        _fence(dev)
+        closure_s = time.perf_counter() - t2
+    shipped = labels.nbytes + len(host) * n_pad * w * 4
     get_ledger().transfers.h2d("label_build", shipped,
                                getattr(graph, "graph_key", "-"))
     return DeviceGraph(n=n, n_pad=n_pad, labels=labels_t, stack=stack,
-                       build_s=t1 - t0, upload_s=t2 - t1, nbytes=shipped)
+                       build_s=t1 - t0, upload_s=t2 - t1, closure_s=closure_s,
+                       nbytes=shipped)
+
+
+def _fence(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def stacked_matrices(dg: DeviceGraph) -> torch.Tensor:

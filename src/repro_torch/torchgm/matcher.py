@@ -10,8 +10,9 @@ uploaded once, at construction, and shared.
 Each result carries the phase times the serving path reports: simulation
 seconds and passes (shared by a batch) and enumeration seconds, each
 ending at the host read of its result (the FB sizes, the count), which
-waits for the device.  The device-graph build and upload are on the
-matcher (``build_s``, ``upload_s``, ``upload_bytes``).
+waits for the device.  The device-graph build, upload and on-device
+closure are on the matcher (``build_s``, ``upload_s``, ``closure_s``,
+``upload_bytes``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ class TorchMatchResult:
 class TorchGM:
     """Whole-graph device matcher bound to one data graph, on ``device``
     (resolved as the executors resolve it: the card unless the CPU is
-    pinned; without CUDA and without a pin, construction raises)."""
+    pinned; without CUDA and without a pin, construction raises).  With
+    ``closure_on_device`` the reachability matrices are squared out of the
+    adjacency on the device (``closure_step``) instead of being built by
+    the host reachability index."""
 
     def __init__(self, graph: DataGraph, *, max_q: int = 8, max_e: int = 16,
                  block: int = 512, capacity: int = 4096, n_passes: int = 4,
@@ -62,6 +66,7 @@ class TorchGM:
                                          device=self.device)
         self.build_s = self.dg.build_s
         self.upload_s = self.dg.upload_s
+        self.closure_s = self.dg.closure_s
         self.upload_bytes = self.dg.nbytes
 
     def _prep(self, q: PatternQuery):

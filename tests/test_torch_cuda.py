@@ -13,15 +13,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import GM, GMOptions  # noqa: E402
+from repro_torch.core.reachability import ReachabilityIndex  # noqa: E402
 from repro_torch.data.graphs import random_labeled_graph  # noqa: E402
 from repro_torch.data.queries import random_query_from_graph  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import ops, packed  # noqa: E402
 from repro_torch.kernels.bitmm import bitmm  # noqa: E402
+from repro_torch.kernels.closure import closure_step  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
 from repro_torch.obs.ledger import LEDGER  # noqa: E402
-from repro_torch.torchgm import TorchGM, frontier  # noqa: E402
+from repro_torch.torchgm import TorchGM, device_graph, frontier  # noqa: E402
 
 RESIDENT = "frontier-device-resident"
 
@@ -160,3 +163,87 @@ def test_torchgm_on_card_equals_host(cuda, qtype, seed):
     assert not got.overflowed and got.count == want.count
     [batched] = gm.match_batch([q])
     assert batched.count == want.count
+
+
+def _packed(dense, device):
+    return packed.pack(torch.from_numpy(dense)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 96, 512, 1024, 1056])
+@pytest.mark.parametrize("density", [0.001, 0.03, 0.3])
+def test_closure_step_kernel_equals_plain(cuda, n, density):
+    """n = 96 and 1,056 have a lane count that is not a multiple of 4
+    (the kernel's 4-byte path)."""
+    dense = np.random.default_rng(n).random((n, n)) < density
+    r = _packed(dense, cuda)
+    reset_launch_counts()
+    got = closure_step(r)
+    assert launch_counts().get("closure_step") == 1
+    assert torch.equal(got, ref.closure_step_ref(r))
+    out = torch.full_like(r, -1)
+    assert closure_step(r, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [False, True])
+def test_closure_step_kernel_empty_and_full(cuda, fill):
+    r = _packed(np.full((1024, 1024), fill), cuda)
+    got = closure_step(r)
+    assert torch.equal(got, r) and torch.equal(got, ref.closure_step_ref(r))
+
+
+@pytest.mark.cuda
+def test_closure_step_kernel_chain_needs_every_step(cuda):
+    """A 1,024-node chain: each of its 10 steps changes R, the kernel
+    equals the plain version at every one, and the last gives the strict
+    upper triangle."""
+    n = 1024
+    dense = np.zeros((n, n), dtype=bool)
+    dense[np.arange(n - 1), np.arange(1, n)] = True
+    r = _packed(dense, cuda)
+    for _ in range(10):
+        nxt = closure_step(r)
+        assert torch.equal(nxt, ref.closure_step_ref(r))
+        assert not torch.equal(nxt, r)
+        r = nxt
+    want = _packed(np.triu(np.ones((n, n), dtype=bool), k=1), cuda)
+    assert torch.equal(r, want)
+    assert torch.equal(closure_step(r), r)
+
+
+@pytest.mark.cuda
+def test_transitive_closure_on_card_equals_host_index(cuda):
+    g = random_labeled_graph(300, avg_degree=3.0, n_labels=3, seed=6)
+    n_pad = 320
+    dense = np.zeros((n_pad, n_pad), dtype=bool)
+    dense[:g.n, :g.n] = g.adjacency_matrix()
+    reset_launch_counts()
+    got = ops.transitive_closure(_packed(dense, cuda))
+    assert launch_counts().get("closure_step") == 9
+    host = ReachabilityIndex.build(g).dense()
+    assert np.array_equal(packed.unpack(got, n_pad).cpu().numpy()[:g.n, :g.n],
+                          host)
+    assert torch.equal(packed.transpose(got),
+                       _packed(packed.unpack(got, n_pad).cpu().numpy().T,
+                               cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(300, 128), (700, 512)])
+def test_closure_on_device_on_card_equals_host_index_stack(cuda, n, block):
+    g = random_labeled_graph(n, avg_degree=3.0, n_labels=4, seed=n)
+    reset_launch_counts()
+    dg = device_graph.from_host(g, block=block, closure_on_device=True)
+    assert dg.device.type == "cuda"
+    assert launch_counts().get("closure_step") == int(np.ceil(np.log2(
+        dg.n_pad)))
+    host = device_graph.from_host(g, block=block)
+    assert torch.equal(dg.stack, host.stack)
+    assert torch.equal(dg.labels, host.labels)
+    q = random_query_from_graph(g, 4, qtype="D", seed=n)
+    want = GM(g).match(q, GMOptions(enum_method="frontier", limit=None,
+                                    materialize=False))
+    got = TorchGM(g, block=block, capacity=1 << 16, exact_sim=True,
+                  closure_on_device=True).match(q)
+    assert not got.overflowed and got.count == want.count

@@ -124,8 +124,18 @@ def test_matrices_are_views_of_one_stack(case):
 
 
 def test_closure_on_device_is_not_silently_replaced(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdgm.from_host(_port_graph(case[0]), closure_on_device=True)
+    """``closure_on_device`` squares the closure out of the adjacency
+    (``tests/test_torch_closure.py`` holds it to the JAX package): the host
+    reachability index is never built, and the result equals it."""
+    pg = _port_graph(case[0])
+
+    def boom():
+        raise AssertionError("the host reachability index was built")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pg, "reachability", boom)
+        pdg = pdgm.from_host(pg, block=BLOCK, closure_on_device=True)
+    assert torch.equal(pdg.stack, case[2].stack)
 
 
 # ---------------------------------------------------------------- encoding
