@@ -51,7 +51,11 @@
    overhead included), ``plain_ms`` the plain version eagerly,
    ``library_ms`` one PyTorch call computing the same product where there
    is one (``closure_step``: ``torch.matmul`` of the unpacked bf16 R by
-   itself).
+   itself; ``bitmm``: ``torch._int_mm`` of the unpacked int8 A by X, held
+   to the kernel's output).  ``bitmm`` is also timed at B = 32 (the batch
+   of 4) and its CUDA-core floor printed.  Bounds: bytes over 3.35 TB/s
+   against operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor
+   cores) and over 67 T/s for the others.
 6. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -75,7 +79,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RESIDENT = "frontier-device-resident"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT32_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate
+# H100 SXM published float32 rate outside the tensor cores (FMA); the
+# yardstick of the word-operation kernels, whose bounds bytes set
+INT32_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+LOP3_PER_SM_CLOCK = 64           # 32-bit logic results a clock per SM (9.0)
 FLUSH_BYTES = 256 << 20          # written between timed calls: > 50 MB L2
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gather_intersect": CSRC + "frontier_kernels.cu",
@@ -633,14 +641,14 @@ def bound(name: str, args, kw):
         f, k, w = rows.shape
         return 4 * f * (k * w + w + 1), f * w * (k + 1)
     if name == "bitmm":
+        # A read once, X and Y once; the product as the int8 tensor cores
+        # do it: 2 * M * 32 W * B operations (a multiply-add is two)
         a, x = args
         m, w = a.shape
         k, b = x.shape
-        threshold = kw.get("threshold", True)
-        out = m * b * (1 if threshold else 4)
-        # AND + OR per lane and column (threshold); AND + popc + add (sum)
+        out = m * b * (1 if kw.get("threshold", True) else 4)
         return (4 * m * w + k * b * x.element_size() + out,
-                m * w * b * (2 if threshold else 3))
+                2 * m * 32 * w * b)
     if name == "closure_step":
         # R read once, R' written once; the row-OR form ORs one row of W
         # lanes per set bit of R (the dense product would do N * N * W)
@@ -653,10 +661,27 @@ def bound(name: str, args, kw):
     return 4 * (f * live + 2 * kw["size"]), 3 * f * live
 
 
+OPS_PER_S = {"bitmm": INT8_TENSOR_OPS_PER_S}
+
+
+def bound_ms(name: str, args, kw):
+    """(least ms, "bytes" or "operations", bytes, operations): the larger
+    of the bytes over the memory rate and the operations over the rate of
+    the units that do them (the int8 tensor cores for bitmm, else the
+    float32 rate outside the tensor cores)."""
+    nbytes, ops = bound(name, args, kw)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S.get(name, INT32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
 def edge_cases(torch, np):
     """Seeded ragged inputs: odd lane counts, K=1, tail bits, cut pages;
-    for bitmm M and K off every block, B = 1 and 128, sum mode, all-zero
-    and all-ones A; for closure_step N = 32 to 1,056 at densities 0.001 to
+    for bitmm B = 1 to 257 across the MMA widths, M off the row tiles,
+    W % 4 != 0, K below 32 W, a misaligned A, X as a transposed view, a
+    float and a strided slice, sum mode, all-zero and all-ones A; for
+    closure_step N = 32 to 1,056 at densities 0.001 to
     0.3, all-zero and all-ones R."""
     from repro_torch.kernels import packed
     rng = np.random.default_rng(7)
@@ -683,16 +708,36 @@ def edge_cases(torch, np):
                             (200, 6, 161, 2048), (1, 2, 33, 5)):
         cases.append(("expand_pairs", (lanes(f, w),),
                       {"n_i": n_i, "size": size}))
-    for mm, k, b in ((257, 1000, 1), (1000, 32 * 37, 128), (33, 33, 8),
-                     (2051, 70000, 9)):
+    # bitmm: B across the MMA widths (zero columns of padding) and past
+    # 256 (a second column tile); M one below and past the row tiles (384
+    # rows for B <= 64, 128 above); W % 4 != 0 (4-byte copies of A); K
+    # below 32 W with A's tail bits set (random words); X as the
+    # simulation's transposed view, a contiguous float and a strided slice
+    bitmm_shapes = [(300, 2048, b) for b in (1, 15, 16, 17, 64, 65, 128,
+                                             256, 257)]
+    bitmm_shapes += [(383, 2048, 64), (385, 2048, 64), (127, 2048, 128),
+                     (129, 2048, 128), (300, 32 * 37, 64), (257, 1000, 1),
+                     (1000, 32 * 37, 128), (33, 33, 8), (2051, 70000, 9)]
+    for mm, k, b in bitmm_shapes:
         a = lanes(mm, (k + 31) // 32)
         for threshold in (True, False):
             cases.append(("bitmm", (a, binary(k, b)),
                           {"threshold": threshold}))
+    a = lanes(300, 64)
+    fb = binary(64, 2048)                       # the simulation's FB rows
+    misaligned = lanes(300 * 64 + 1)[1:].view(300, 64)
+    for threshold in (True, False):
+        for x in (fb.t(), binary(2048, 64).float(), binary(2048, 128)[:, ::2]):
+            cases.append(("bitmm", (a, x), {"threshold": threshold}))
+        cases.append(("bitmm", (misaligned, binary(2048, 64)),
+                      {"threshold": threshold}))
     w = 2 * 41
     for fill in (0, -1):                        # all-zero and all-ones A
         a = torch.full((300, w), fill, dtype=torch.int32, device="cuda")
         cases.append(("bitmm", (a, binary(32 * w, 8)), {"threshold": False}))
+    ones = torch.full((300, 32), -1, dtype=torch.int32, device="cuda")
+    cases.append(("bitmm", (ones, torch.ones((1000, 16), device="cuda")),
+                  {"threshold": False}))       # every count exactly K
     # closure_step: N = 96 and 1,056 have lane counts off a multiple of 4
     for n in (32, 96, 512, 1024, 1056):
         for density in (0.001, 0.03, 0.3):
@@ -734,6 +779,49 @@ def chain_case(torch, closure_step, closure_step_ref) -> None:
 REPS = {"cold": 20, "warm": 20, "eager": 50, "plain": 10, "plain_warmup": 3}
 CLOSURE_REPS = {"cold": 4, "warm": 4, "eager": 5, "plain": 2,
                 "plain_warmup": 1}
+
+
+def bitmm_library_ms(torch, a, x, threshold=True) -> float:
+    """One ``torch._int_mm`` of the unpacked int8 A (M x 32 W, built 2,048
+    rows at a time) by X as int8 (columns padded to a multiple of 8): the
+    product as a library computes it.  Its ``> 0`` (threshold) or its
+    counts must equal the kernel's output on the same inputs."""
+    from repro_torch.kernels import packed
+    from repro_torch.kernels.bitmm import bitmm
+    m, w = a.shape
+    k, b = x.shape
+    dense = torch.empty((m, 32 * w), dtype=torch.int8, device="cuda")
+    for r0 in range(0, m, 2048):
+        dense[r0:r0 + 2048] = packed.unpack(a[r0:r0 + 2048], 32 * w)
+    xi = torch.zeros((-(-b // 8) * 8, 32 * w), dtype=torch.int8,
+                     device="cuda")
+    xi[:b, :k] = x.t() != 0
+    xi = xi.t()                          # (32 W, B8), column-major
+    out = torch._int_mm(dense, xi)
+    want = bitmm(a, x, threshold=threshold)
+    got = out[:, :b] > 0 if threshold else out[:, :b].float()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("torch._int_mm of the unpacked A disagrees "
+                             "with the bitmm kernel")
+    ms = time_ms(torch, lambda: torch._int_mm(dense, xi), iters=10,
+                 warmup=2)
+    del dense, xi, out, got, want
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cuda_core_floor_ms(torch, a, x) -> float:
+    """The bitmm product on the CUDA cores at best: M * W * B fused AND+OR
+    (lop3) results at 64 a clock on every SM at the card's maximum SM
+    clock."""
+    m, w = a.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return m * w * x.shape[1] / (sms * LOP3_PER_SM_CLOCK * mhz * 1e6) * 1e3
 
 
 def closure_library_ms(torch, r) -> float:
@@ -793,9 +881,7 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"(max abs err {err})")
         del got, want
-        nbytes, ops = bound(name, args, kw)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
+        least, by, nbytes, ops = bound_ms(name, args, kw)
         out = {"shape": {k: list(a.shape) for k, a in
                          zip(("a0", "a1"), args)} | kw,
                "max_abs_err": err,
@@ -808,8 +894,7 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
                "plain_ms": time_ms(torch, lambda: plain[name](*args, **kw),
                                    iters=reps["plain"],
                                    warmup=reps["plain_warmup"]),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_ms": least, "bound_by": by}
         log(f"[{card}] kernel {name} at {out['shape']}: {out['ms']:.6f} ms "
             f"(CUDA graph, cold L2), {out['warm_ms']:.6f} ms warm, "
             f"{out['eager_ms']:.6f} ms eager, plain {out['plain_ms']:.6f} ms "
@@ -830,13 +915,20 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             n, w = r.shape
             log(f"[{card}] kernel closure_step: the dense product would do "
                 f"{n * n * w} word operations per step "
-                f"({n * n * w / INT32_OPS_PER_S * 1e3:.3f} ms at the int32 "
-                f"rate); R holds {set_bits(r)} set bits")
+                f"({n * n * w / INT32_OPS_PER_S * 1e3:.3f} ms at 67 T/s, the "
+                f"float32 rate outside the tensor cores); R holds "
+                f"{set_bits(r)} set bits")
             library_ms = closure_library_ms(torch, r)
             log(f"[{card}] kernel closure_step: library torch.matmul of the "
                 f"unpacked bf16 R by itself {library_ms:.3f} ms")
         else:
             m = measure(name, *inputs[name][1:])
+        if name == "bitmm":
+            args, kw = inputs[name][1:]
+            library_ms = bitmm_library_ms(torch, *args, **kw)
+            log(f"[{card}] kernel bitmm: library torch._int_mm of the "
+                f"unpacked int8 A by X {library_ms:.6f} ms; CUDA-core floor "
+                f"{cuda_core_floor_ms(torch, *args):.6f} ms")
         by_path = {path: int(counts.get(name, 0))
                    for path, counts in launches.items()}
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -852,6 +944,12 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             # (queries, bitmm launches) of each TorchGM call on the serve
             # path: four launches per simulation pass for the whole batch
             row["launches_per_device_call"] = device_calls
+            # the batch of 4 (B = 32): the first 32 columns of the same
+            # operand, a view of the same layout
+            (a, x), kw = inputs[name][1:]
+            row["batch_of_4"] = measure(name, (a, x[:, :32]), kw)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     row["batch_of_4"]["max_abs_err"])
         if name == "expand_pairs":
             # the whole-graph enumerator's frontier page on the serve path
             serve = measure(name, *inputs["expand_pairs@serve"][1:])

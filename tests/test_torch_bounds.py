@@ -1,0 +1,82 @@
+"""The least times that ``chip_smoke.py`` sets beside each kernel.
+
+``chip_smoke.py`` is loaded by path (its top-level imports are the
+standard library only) and its bound functions are called on ``meta``
+tensors of the serve path's shapes at the ``epinions`` profile
+(n_pad = 76,288 nodes, W = 2,384 lanes, a batch of 8 queries of 8 nodes:
+B = 64), so no memory is allocated and no card is needed.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+N_PAD, W, B = 76_288, 2_384, 64
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _serve_operands(b=B, x_dtype=torch.bool):
+    a = torch.empty((N_PAD, W), dtype=torch.int32, device="meta")
+    x = torch.empty((N_PAD, b), dtype=x_dtype, device="meta")
+    return a, x
+
+
+def test_bitmm_bound_counts_bytes_and_tensor_operations(smoke):
+    """A read once (727,482,368 B), bool X and bool Y once; the product as
+    the int8 tensor cores do it, a multiply-add counted as two."""
+    nbytes, ops = smoke.bound("bitmm", _serve_operands(), {})
+    assert nbytes == 737_247_232
+    assert nbytes == 4 * N_PAD * W + 2 * N_PAD * B
+    assert ops == 2 * N_PAD * 32 * W * B == 744_941_944_832
+
+
+@pytest.mark.parametrize("threshold,x_dtype,out_bytes,x_bytes", [
+    (True, torch.bool, 1, 1), (False, torch.bool, 4, 1),
+    (True, torch.float32, 1, 4), (False, torch.float32, 4, 4)])
+def test_bitmm_bound_bytes_follow_the_dtypes(smoke, threshold, x_dtype,
+                                             out_bytes, x_bytes):
+    nbytes, ops = smoke.bound("bitmm", _serve_operands(x_dtype=x_dtype),
+                              {"threshold": threshold})
+    assert nbytes == 4 * N_PAD * W + N_PAD * B * (x_bytes + out_bytes)
+    assert ops == 2 * N_PAD * 32 * W * B
+
+
+@pytest.mark.parametrize("b,by,least_ms", [(64, "operations", 0.376423),
+                                            (32, "bytes", 0.218616)])
+def test_bitmm_bound_is_the_larger_time(smoke, b, by, least_ms):
+    """At B = 64 (a batch of 8) the int8 tensor cores (1,979 TOP/s) bound
+    bitmm, above the 0.220 ms that its bytes take; at B = 32 (a batch of
+    4) the bytes do."""
+    least, got_by, nbytes, ops = smoke.bound_ms("bitmm", _serve_operands(b),
+                                                {})
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 1979e12 * 1e3
+    assert got_by == by
+    assert least == max(t_bytes, t_ops)
+    assert least == pytest.approx(least_ms, abs=1e-6)
+
+
+def test_word_kernel_bounds_keep_their_basis(smoke):
+    """The word-operation kernels stay measured against the float32 rate
+    outside the tensor cores; bytes bound them."""
+    rows = torch.empty((512, 1, 896), dtype=torch.int32, device="meta")
+    least, by, nbytes, ops = smoke.bound_ms("intersect", (rows,), {})
+    assert (nbytes, ops) == (4 * 512 * (896 + 896 + 1), 512 * 896 * 2)
+    assert by == "bytes" and least == pytest.approx(nbytes / 3.35e12 * 1e3)
+    page = torch.empty((65_536, W), dtype=torch.int32, device="meta")
+    least, by, nbytes, ops = smoke.bound_ms(
+        "expand_pairs", (page,), {"n_i": N_PAD, "size": 65_536})
+    assert nbytes == 4 * (65_536 * W + 2 * 65_536)
+    assert ops == 3 * 65_536 * W
+    assert by == "bytes"

@@ -112,11 +112,23 @@ def test_resident_executor_charges_full_pair_pages(cuda):
     LEDGER.reset()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,b,density", [
+# B across the MMA widths (32, 64, 128, 256: zero columns of padding) and
+# past 256 (a second column tile); M one below and one past the row tiles
+# (384 rows for B <= 64, 128 above); W % 4 != 0 (4-byte copies of A); K
+# below 32 W with A's tail bits set (random words)
+BITMM_SHAPES = [
     (128, 256, 8, 0.3), (300, 1184, 8, 0.1), (257, 100, 1, 0.5),
     (1000, 2048, 128, 0.05), (77, 4096, 13, 0.01), (2051, 32 * 37, 64, 0.2),
-    (64, 33, 3, 0.5), (129, 70000, 9, 0.001)])
+    (64, 33, 3, 0.5), (129, 70000, 9, 0.001)]
+BITMM_SHAPES += [(300, 2048, b, 0.3) for b in (1, 15, 16, 17, 64, 65, 128,
+                                                256, 257)]
+BITMM_SHAPES += [(383, 2048, 64, 0.3), (385, 2048, 64, 0.3),
+                 (127, 2048, 128, 0.3), (129, 2048, 128, 0.3),
+                 (300, 32 * 37, 64, 0.3), (300, 1000, 64, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b,density", BITMM_SHAPES)
 @pytest.mark.parametrize("threshold", [True, False])
 def test_bitmm_kernel_equals_plain(cuda, m, k, b, density, threshold):
     rng = np.random.default_rng(m + k + b)
@@ -130,17 +142,39 @@ def test_bitmm_kernel_equals_plain(cuda, m, k, b, density, threshold):
     assert launch_counts().get("bitmm") == 1
     want = ref.bitmm_ref(a, x, threshold=threshold)
     assert got.dtype == want.dtype and torch.equal(got, want)
-    # a float 0/1 operand and a transposed view give the same product
+    # the simulation's operand (the transposed view of contiguous bool
+    # rows, passed to the kernel as it is), a float copy of it and a
+    # strided slice give the same product
     xt = x.t().contiguous().t()
-    assert torch.equal(bitmm(a, xt.float(), threshold=threshold), want)
+    strided = torch.stack([x, ~x], dim=2).reshape(k, 2 * b)[:, ::2]
+    for form in (xt, xt.float(), strided):
+        assert torch.equal(bitmm(a, form, threshold=threshold), want)
 
 
 @pytest.mark.cuda
-def test_bitmm_kernel_empty_and_full(cuda):
-    m, k, b = 200, 32 * 41, 8
+@pytest.mark.parametrize("threshold", [True, False])
+def test_bitmm_kernel_misaligned_a(cuda, threshold):
+    """A off a 16-byte boundary has no tensor map: its stages come from
+    4-byte copies."""
+    rng = np.random.default_rng(5)
+    m, k, b = 300, 2048, 64
+    a = _lanes(rng, m * (k // 32) + 1).to(cuda)[1:].view(m, k // 32)
+    assert a.data_ptr() % 16
+    x = torch.from_numpy(rng.random((k, b)) < 0.3).to(cuda)
+    assert torch.equal(bitmm(a, x, threshold=threshold),
+                       ref.bitmm_ref(a, x, threshold=threshold))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32 * 41, 1000])
+def test_bitmm_kernel_empty_and_full(cuda, k):
+    """All-ones A in sum mode counts exactly K (its bits at K and above
+    never count)."""
+    m, b = 200, 8
+    w = (k + 31) // 32
     x = torch.ones((k, b), dtype=torch.bool, device=cuda)
-    zero = torch.zeros((m, k // 32), dtype=torch.int32, device=cuda)
-    ones = torch.full((m, k // 32), -1, dtype=torch.int32, device=cuda)
+    zero = torch.zeros((m, w), dtype=torch.int32, device=cuda)
+    ones = torch.full((m, w), -1, dtype=torch.int32, device=cuda)
     assert not bitmm(zero, x).any()
     assert torch.equal(bitmm(ones, x, threshold=False),
                        torch.full((m, b), float(k), device=cuda))

@@ -25,7 +25,7 @@ from repro.kernels.gather_intersect import (expand_pairs as j_expand,  # noqa: E
 from repro.kernels.intersect import intersect_pallas  # noqa: E402
 from repro_torch.kernels import ops, packed  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
-from repro_torch.kernels.bitmm import bitmm  # noqa: E402
+from repro_torch.kernels.bitmm import b_operand, bitmm  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
@@ -238,6 +238,59 @@ def test_bitmm_empty_full_and_rejects_non_binary():
             fn(ones, torch.full((k, b), 0.5))
     with pytest.raises(ValueError):
         bitmm(ones, torch.ones((k + 32, b)))
+
+
+def _operand_forms(rng, k, b):
+    """0/1 operands (K, B) in the forms the wrapper meets, with K = 32 W
+    for the simulation's transposed FB view."""
+    fb = torch.from_numpy(rng.random((b, k)) < 0.3)      # contiguous rows
+    dense = rng.random((k, b)) < 0.3
+    wide = torch.from_numpy(rng.random((k, 2 * b)) < 0.3)
+    return {"fb_view": fb.t(),
+            "bool": torch.from_numpy(dense),
+            "float": torch.from_numpy(dense.astype(np.float32)),
+            "uint8": torch.from_numpy(dense.astype(np.uint8)),
+            "strided": wide[:, ::2]}
+
+
+@pytest.mark.parametrize("form", ["fb_view", "bool", "float", "uint8",
+                                  "strided"])
+@pytest.mark.parametrize("k,b", [(2048, 64), (2048, 1), (1000, 17),
+                                 (33, 8)])
+def test_bitmm_b_operand_bytes(form, k, b):
+    """The kernel's right operand: X^T as 0/1 bytes (B, 32 W), zero at
+    columns K and above, on a 16-byte boundary with rows a multiple of 16
+    bytes apart, whatever form X came in."""
+    w = (k + 31) // 32
+    x = _operand_forms(np.random.default_rng(k + b), k, b)[form]
+    got = b_operand(x, w)
+    want = np.zeros((b, 32 * w), dtype=np.uint8)
+    want[:, :k] = x.numpy().T != 0
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (b, 32 * w)
+    assert np.array_equal(got.numpy(), want)
+    assert got.stride(1) == 1 and got.data_ptr() % 16 == 0
+    assert b == 1 or (got.stride(0) % 16 == 0 and got.stride(0) >= 32 * w)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_bitmm_b_operand_shares_the_simulations_storage(b):
+    """The simulation's operand (``simulation._columns``: the transpose of
+    a contiguous (Bq, max_q, n_pad) FB) goes to the kernel as it is; any
+    other layout is copied."""
+    from repro_torch.torchgm.simulation import _columns
+    n_pad = 32 * 40
+    fb = torch.from_numpy(np.random.default_rng(b).random(
+        (b, 1, n_pad)) < 0.3)
+    x = _columns(fb)
+    got = b_operand(x, n_pad // 32)
+    assert got.data_ptr() == fb.data_ptr()
+    assert got.untyped_storage().data_ptr() == \
+        fb.untyped_storage().data_ptr()
+    assert torch.equal(got.view(torch.bool), fb.reshape(b, n_pad))
+    # a K below 32 W, a float and a row-major (K, B) are copied
+    copies = [x[:-1], x.float()] + ([x.contiguous()] if b > 1 else [])
+    for other in copies:
+        assert b_operand(other, n_pad // 32).data_ptr() != fb.data_ptr()
 
 
 # ------------------------------------------------------------ wrapper checks
