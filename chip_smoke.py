@@ -32,31 +32,38 @@
    is freed: ``TorchGM(graph, closure_on_device=True)`` squares the
    reachability matrix out of the uploaded adjacency with 17
    ``closure_step`` launches (the host index is not consulted) and
-   transposes it on the card.  Its whole device stack must equal, byte
-   for byte, that of a ``TorchGM`` built from the host index; both answer
-   the serve path's 12 requests through ``match_batch`` in batches of 8
-   and 4, with equal counts and overflow flags, and counts equal to the
-   host ``GM``'s where nothing overflowed.  Prints ``closure_s``, each
-   step's kernel time (CUDA events), the transpose time, the step after
-   which R stopped changing (found after the timed run) and the bytes
-   shipped.
-5. Holds each kernel to its plain PyTorch version on the card, exactly, on
+   transposes it with one ``transpose`` launch.  Its whole device stack
+   must equal, byte for byte, that of a ``TorchGM`` built from the host
+   index; both answer the serve path's 12 requests through
+   ``match_batch`` in batches of 8 and 4, with equal counts and overflow
+   flags, and counts equal to the host ``GM``'s where nothing
+   overflowed.  Prints ``closure_s``, each step's kernel time (CUDA
+   events), the transpose time, the step after which R stopped changing
+   (found after the timed run) and the bytes shipped.
+5. Dense closure: the paper's Table 1 ``human`` profile (4,674 nodes,
+   uniform, n_pad 5,120), whose closure is all ones, built the same way
+   on the card and held to the host index's stack; prints each step's
+   time (from the second step on every row takes the kernel's whole-row
+   path).
+6. Holds each kernel to its plain PyTorch version on the card, exactly, on
    the largest input its path gave it (``expand_pairs``: also the serve
-   path's last frontier page; ``closure_step``: the last step's R) and on
-   ragged edge cases, and times both with CUDA events beside the kernel's
-   bound: ``ms`` is the kernel's device time per call with a cold L2 (each
-   call captured in a CUDA graph behind a write of a buffer larger than
-   L2, whose own time is replayed alone and subtracted), ``warm_ms`` the
-   same without the flush, ``eager_ms`` the wrapper called eagerly (host
+   path's last frontier page; ``closure_step``: the last step's R, and
+   the human profile's; ``transpose``: the closure) and on ragged edge
+   cases, and times both with CUDA events beside the kernel's bound:
+   ``ms`` is the kernel's device time per call with a cold L2 (each call
+   captured in a CUDA graph behind a write of a buffer larger than L2,
+   whose own time is replayed alone and subtracted), ``warm_ms`` the same
+   without the flush, ``eager_ms`` the wrapper called eagerly (host
    overhead included), ``plain_ms`` the plain version eagerly,
    ``library_ms`` one PyTorch call computing the same product where there
    is one (``closure_step``: ``torch.matmul`` of the unpacked bf16 R by
    itself; ``bitmm``: ``torch._int_mm`` of the unpacked int8 A by X, held
-   to the kernel's output).  ``bitmm`` is also timed at B = 32 (the batch
-   of 4) and its CUDA-core floor printed.  Bounds: bytes over 3.35 TB/s
+   to the kernel's output, at B = 64 and at B = 32; none for
+   ``transpose``).  ``bitmm`` is also timed at B = 32 (the batch of 4)
+   and its CUDA-core floor printed.  Bounds: bytes over 3.35 TB/s
    against operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor
    cores) and over 67 T/s for the others.
-6. Prints the ``kernels`` JSON line, the card's name and power limit, and
+7. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without CUDA, or without the
@@ -90,17 +97,20 @@ SOURCES = {"gather_intersect": CSRC + "frontier_kernels.cu",
            "expand_pairs": CSRC + "frontier_kernels.cu",
            "intersect": CSRC + "frontier_kernels.cu",
            "bitmm": CSRC + "bitmm.cu",
-           "closure_step": CSRC + "closure.cu"}
+           "closure_step": CSRC + "closure.cu",
+           "transpose": CSRC + "closure.cu"}
 REPLACES = {
     "gather_intersect": "src/repro/kernels/gather_intersect.py:96",
     "expand_pairs": "src/repro/kernels/gather_intersect.py:124",
     "intersect": "src/repro/kernels/intersect.py:79",
     "bitmm": "src/repro/kernels/bitmm.py:76",
     "closure_step": "src/repro/kernels/closure.py:75",
+    # XLA unpack, numpy transpose and XLA repack: not a Pallas kernel
+    "transpose": "src/repro/jaxgm/device_graph.py:76-78",
 }
 GM_KERNELS = ("gather_intersect", "expand_pairs", "intersect")
 SERVE_KERNELS = ("bitmm", "expand_pairs")
-CLOSURE_KERNELS = ("closure_step", "bitmm", "expand_pairs")
+CLOSURE_KERNELS = ("closure_step", "transpose", "bitmm", "expand_pairs")
 # two of the four queries of the first slice (D s1: the largest resident
 # RIG; H s0: the smallest), so that the serve path fits the time limit
 QUERIES = (("D", 1), ("H", 0))
@@ -481,18 +491,19 @@ def exact_counts(card: str, gm, queries, refs, journal, capture):
 
 class ClosureSteps:
     """Times each ``closure_step`` call of ``transitive_closure`` with CUDA
-    events and each ``packed.transpose`` call the same way, and keeps the
-    last step's input R (the densest input of the path; no later step
-    writes its buffer).  The wrappers and their launch counts are
-    untouched."""
+    events and each ``transpose`` call the same way, and keeps the last
+    step's input R (the densest input of the path; no later step writes
+    its buffer) and the transpose's input.  The wrappers and their launch
+    counts are untouched."""
 
     def __init__(self, torch):
-        from repro_torch.kernels import ops, packed
-        self.steps, self.transposes, self.last = [], [], None
-        self._saved = [(ops, "closure_step", ops.closure_step),
-                       (packed, "transpose", packed.transpose)]
+        from repro_torch.kernels import ops
+        self.steps, self.transposes = [], []
+        self.inputs = {}
+        self._saved = [(ops, name, getattr(ops, name))
+                       for name in ("closure_step", "transpose")]
 
-        def timed(events, fn, keep):
+        def timed(events, name, fn):
             def wrapped(r, *a, **kw):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -500,13 +511,12 @@ class ClosureSteps:
                 out = fn(r, *a, **kw)
                 end.record()
                 events.append((start, end))
-                if keep:
-                    self.last = r
+                self.inputs[name] = r
                 return out
             return wrapped
 
-        ops.closure_step = timed(self.steps, ops.closure_step, True)
-        packed.transpose = timed(self.transposes, packed.transpose, False)
+        ops.closure_step = timed(self.steps, "closure_step", ops.closure_step)
+        ops.transpose = timed(self.transposes, "transpose", ops.transpose)
 
     def restore(self):
         for module, name, fn in self._saved:
@@ -552,9 +562,12 @@ def closure_path(torch, card: str, graph, queries, refs, exact):
                              "index")
     hgm = TorchGM(graph, **opts)
     steps = math.ceil(math.log2(cgm.dg.n_pad))     # 17 at scale 1.0
-    if built.get("closure_step", 0) != steps:
+    if (built.get("closure_step", 0), built.get("transpose", 0)) != (steps,
+                                                                     1):
         raise AssertionError(f"the closure made {built.get('closure_step')} "
-                             f"closure_step launches, not {steps}")
+                             f"closure_step launches, not {steps}, and "
+                             f"{built.get('transpose')} transpose launches,"
+                             f" not 1")
     if not (torch.equal(cgm.dg.stack, hgm.dg.stack)
             and torch.equal(cgm.dg.labels, hgm.dg.labels)):
         raise AssertionError("the closure-built device graph differs from "
@@ -623,7 +636,56 @@ def closure_path(torch, card: str, graph, queries, refs, exact):
     info = {"closure_s": cgm.closure_s, "step_ms": step_ms,
             "transpose_ms": transpose_ms, "steps_changed": last_change,
             "steps": steps, "shipped_bytes": shipped}
-    return total, timer.last, info
+    return total, timer.inputs["closure_step"], \
+        timer.inputs["transpose"].clone(), info
+
+
+def dense_closure_case(torch, card: str):
+    """A closure that is dense: the paper's Table 1 ``human`` profile
+    (4,674 nodes, uniform, average degree 18.5) is one strongly connected
+    component, so its closure is all ones.  ``from_host(...,
+    closure_on_device=True)`` builds it on the card; its stack must equal
+    the host index's byte for byte.  Returns the last step's R and the
+    per-step times."""
+    from repro_torch.data.graphs import paper_profile_graph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.torchgm import device_graph
+
+    graph = paper_profile_graph("human", seed=0)
+    t0 = time.perf_counter()
+    host = device_graph.from_host(graph)           # host reachability index
+    host_s = time.perf_counter() - t0
+    timer = ClosureSteps(torch)
+    reset_launch_counts()
+    dg = device_graph.from_host(graph, closure_on_device=True)
+    timer.restore()
+    launched = launch_counts()
+    steps = math.ceil(math.log2(dg.n_pad))         # 13 at n_pad 5,120
+    if (launched.get("closure_step"), launched.get("transpose")) != (steps,
+                                                                     1):
+        raise AssertionError(f"human profile: launches {launched}")
+    if not (torch.equal(dg.stack, host.stack)
+            and torch.equal(dg.labels, host.labels)):
+        raise AssertionError("human profile: the closure-built device graph "
+                             "differs from the host-index one")
+    nnz = set_bits(dg.reach)
+    if nnz != graph.n * graph.n:
+        raise AssertionError(f"human profile: closure holds {nnz} set bits, "
+                             f"not {graph.n} x {graph.n}")
+    step_ms = ClosureSteps.ms(timer.steps)
+    info = {"graph": "human", "n": graph.n, "n_pad": dg.n_pad,
+            "adjacency_set_bits": set_bits(dg.adj), "closure_set_bits": nnz,
+            "closure_s": dg.closure_s, "step_ms": step_ms,
+            "transpose_ms": ClosureSteps.ms(timer.transposes),
+            "host_index_s": host_s}
+    log(f"[{card}] dense closure (human, {graph.n} nodes, {graph.n_edges} "
+        f"edges, n_pad {dg.n_pad}): closure_s {dg.closure_s:.4f} s (host "
+        f"index and upload {host_s:.4f} s); closure_step ms per step "
+        f"{[round(t, 4) for t in step_ms]} (sum {sum(step_ms):.4f}); "
+        f"transpose ms {info['transpose_ms']}; adjacency "
+        f"{info['adjacency_set_bits']} set bits, closure {nnz} (all ones); "
+        f"stacks equal byte for byte")
+    return timer.inputs["closure_step"], info
 
 
 # ---------------------------------------------------------------- kernels
@@ -650,15 +712,42 @@ def bound(name: str, args, kw):
         return (4 * m * w + k * b * x.element_size() + out,
                 2 * m * 32 * w * b)
     if name == "closure_step":
-        # R read once, R' written once; the row-OR form ORs one row of W
-        # lanes per set bit of R (the dense product would do N * N * W)
+        # R read once, R' written once; the list work of the kernel's two
+        # passes (the dense product would do N * N * W)
         (r,) = args
         n, w = r.shape
-        return 2 * 4 * n * w, set_bits(r) * w
+        return 2 * 4 * n * w, closure_step_ops(r)
+    if name == "transpose":
+        # the matrix read once and written once; five swap stages of one
+        # word operation per lane
+        (words,) = args
+        n, w = words.shape
+        return 2 * 4 * n * w, 5 * n * w
     (and_rows,) = args
     f, w = and_rows.shape
     live = min(w, (kw["n_i"] + 31) // 32)
     return 4 * (f * live + 2 * kw["size"]), 3 * f * live
+
+
+def closure_step_ops(r) -> int:
+    """Word operations of ``closure_step``'s two passes on R: each lane
+    popcounted (first pass) and written (second); each lane of a dense row
+    (more than ``LIST_CAP`` set bits) copied and scanned, and one shared
+    OR per entry of a sparse row's own list; then, for each set bit
+    (i, k), one OR per entry of row k's list, or one per lane of row k
+    when it is dense."""
+    import torch
+    from repro_torch.kernels import packed
+    from repro_torch.kernels.closure import LIST_CAP
+    n, w = r.shape
+    cnt = torch.empty(n, dtype=torch.int64, device=r.device)
+    indeg = torch.zeros(n, dtype=torch.int64, device=r.device)
+    for r0 in range(0, n, 4096):
+        rows = r[r0:r0 + 4096]
+        cnt[r0:r0 + rows.shape[0]] = packed.popcount(rows).sum(dim=1)
+        indeg += packed.unpack(rows, n).sum(dim=0)
+    work = torch.where(cnt > LIST_CAP, w, cnt)       # per row k
+    return int(2 * n * w + work.sum() + (indeg * work).sum())
 
 
 OPS_PER_S = {"bitmm": INT8_TENSOR_OPS_PER_S}
@@ -681,8 +770,11 @@ def edge_cases(torch, np):
     for bitmm B = 1 to 257 across the MMA widths, M off the row tiles,
     W % 4 != 0, K below 32 W, a misaligned A, X as a transposed view, a
     float and a strided slice, sum mode, all-zero and all-ones A; for
-    closure_step N = 32 to 1,056 at densities 0.001 to
-    0.3, all-zero and all-ones R."""
+    closure_step N = 32 to 1,056 at densities 0.001 to 0.3, rows past the
+    list capacity among sparse ones, a hub column listed by every row
+    (its own row sparse, then dense), power-law rows, all-zero and
+    all-ones R; for transpose N = 32 to 4,128 (W = 1, 3, 12, 16, 33, 129)
+    and a misaligned matrix."""
     from repro_torch.kernels import packed
     rng = np.random.default_rng(7)
 
@@ -746,6 +838,26 @@ def edge_cases(torch, np):
     for fill in (0, -1):                        # all-zero and all-ones R
         cases.append(("closure_step", (torch.full(
             (1024, 32), fill, dtype=torch.int32, device="cuda"),), {}))
+    # rows past the list capacity (33 to 199 bits, every third row) among
+    # sparse ones; a hub column 7 set in every row, its own row sparse and
+    # then dense; Zipf row degrees
+    for n in (96, 1024, 1056):
+        mixed = np.where(np.arange(n) % 3 == 0, rng.integers(33, 200, n),
+                         rng.integers(0, 33, n))
+        hub = rng.integers(0, 8, n)
+        for deg, hub_bits in ((mixed, None), (hub, 0), (hub, min(n, 100)),
+                              (rng.zipf(1.6, n), None)):
+            dense = np.zeros((n, n), dtype=bool)
+            for i, d in enumerate(np.minimum(deg, n)):
+                dense[i, rng.choice(n, size=d, replace=False)] = True
+            if hub_bits is not None:
+                dense[:, 7] = True
+                dense[7, rng.choice(n, size=hub_bits, replace=False)] = True
+            cases.append(("closure_step",
+                          (packed.pack(torch.from_numpy(dense)).cuda(),), {}))
+    for n in (32, 96, 384, 512, 1056, 4128):
+        cases.append(("transpose", (packed.pack(binary(n, n)),), {}))
+    cases.append(("transpose", (lanes(512 * 16 + 1)[1:].view(512, 16),), {}))
     return cases
 
 
@@ -774,11 +886,14 @@ def chain_case(torch, closure_step, closure_step_ref) -> None:
                              "closure")
 
 
-# iterations of each timing: the closure step works on a 727 MB matrix at
-# the epinions graph and its plain version takes about a second
+# iterations of each timing: the closure step and the transpose work on a
+# 727 MB matrix at the epinions graph; their plain versions take about a
+# second and 0.16 s
 REPS = {"cold": 20, "warm": 20, "eager": 50, "plain": 10, "plain_warmup": 3}
 CLOSURE_REPS = {"cold": 4, "warm": 4, "eager": 5, "plain": 2,
                 "plain_warmup": 1}
+TRANSPOSE_REPS = {"cold": 10, "warm": 10, "eager": 10, "plain": 2,
+                  "plain_warmup": 1}
 
 
 def bitmm_library_ms(torch, a, x, threshold=True) -> float:
@@ -841,21 +956,23 @@ def closure_library_ms(torch, r) -> float:
 
 
 def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
-                 inputs, closure_info):
-    from repro_torch.kernels import ref
+                 inputs, closure_info, dense_info):
+    from repro_torch.kernels import packed, ref
     from repro_torch.kernels.bitmm import bitmm
-    from repro_torch.kernels.closure import closure_step
+    from repro_torch.kernels.closure import closure_step, transpose
     from repro_torch.kernels.gather_intersect import (expand_pairs,
                                                       gather_intersect)
     from repro_torch.kernels.intersect import intersect
 
     kernels = {"gather_intersect": gather_intersect,
                "expand_pairs": expand_pairs, "intersect": intersect,
-               "bitmm": bitmm, "closure_step": closure_step}
+               "bitmm": bitmm, "closure_step": closure_step,
+               "transpose": transpose}
     plain = {"gather_intersect": ref.gather_intersect_ref,
              "expand_pairs": ref.expand_pairs_ref,
              "intersect": ref.intersect_ref, "bitmm": ref.bitmm_ref,
-             "closure_step": ref.closure_step_ref}
+             "closure_step": ref.closure_step_ref,
+             "transpose": packed.transpose}
     for name, args, kw in edge_cases(torch, np):
         got = kernels[name](*args, **kw)
         want = plain[name](*args, **kw)
@@ -902,25 +1019,54 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             f" max abs err {err}")
         return out
 
+    def measure_into(name, r, reps):
+        """``measure`` with the kernel writing into one buffer."""
+        buf = torch.empty_like(r)           # the timed calls write here
+        m = measure(name, (r,), {}, kern=lambda x: kernels[name](x, out=buf),
+                    reps=reps)
+        del buf
+        return m
+
+    def closure_row(r):
+        m = measure_into("closure_step", r, CLOSURE_REPS)
+        n, w = r.shape
+        log(f"[{card}] kernel closure_step: the dense product would do "
+            f"{n * n * w} word operations per step "
+            f"({n * n * w / INT32_OPS_PER_S * 1e3:.3f} ms at 67 T/s, the "
+            f"float32 rate outside the tensor cores) and 2 N^3 = "
+            f"{2 * n ** 3} on the int8 tensor cores "
+            f"({2 * n ** 3 / INT8_TENSOR_OPS_PER_S * 1e3:.3f} ms at 1,979 "
+            f"TOP/s); R holds {set_bits(r)} set bits")
+        m["library_ms"] = closure_library_ms(torch, r)
+        log(f"[{card}] kernel closure_step: library torch.matmul of the "
+            f"unpacked bf16 R by itself {m['library_ms']:.3f} ms")
+        return m
+
     rows = []
     for name in REPLACES:
         library_ms = None
         if name == "closure_step":
-            (r,) = inputs[name][1]
-            buf = torch.empty_like(r)       # the timed calls write here
-            m = measure(name, (r,), {},
-                        kern=lambda x: closure_step(x, out=buf),
-                        reps=CLOSURE_REPS)
-            del buf
-            n, w = r.shape
-            log(f"[{card}] kernel closure_step: the dense product would do "
-                f"{n * n * w} word operations per step "
-                f"({n * n * w / INT32_OPS_PER_S * 1e3:.3f} ms at 67 T/s, the "
-                f"float32 rate outside the tensor cores); R holds "
-                f"{set_bits(r)} set bits")
-            library_ms = closure_library_ms(torch, r)
-            log(f"[{card}] kernel closure_step: library torch.matmul of the "
-                f"unpacked bf16 R by itself {library_ms:.3f} ms")
+            m = closure_row(inputs[name][1][0])
+            library_ms = m["library_ms"]
+        elif name == "transpose":
+            words = inputs[name][1][0]
+            m = measure_into(name, words, TRANSPOSE_REPS)
+            # yardsticks of the same bytes (no PyTorch call transposes a
+            # packed bit matrix): a plain copy, and the lanes transposed
+            # as 32-bit words
+            copy = torch.empty_like(words)
+            word_t = torch.empty(words.shape[::-1], dtype=words.dtype,
+                                 device=words.device)
+            m["copy_ms"] = cold_ms(torch, lambda: copy.copy_(words), flush,
+                                   iters=TRANSPOSE_REPS["cold"])
+            m["word_transpose_ms"] = cold_ms(
+                torch, lambda: word_t.copy_(words.t()), flush,
+                iters=TRANSPOSE_REPS["cold"])
+            del copy, word_t
+            log(f"[{card}] kernel transpose: a copy of the same bytes "
+                f"{m['copy_ms']:.6f} ms, the lanes transposed as 32-bit "
+                f"words {m['word_transpose_ms']:.6f} ms (CUDA graph, cold "
+                f"L2)")
         else:
             m = measure(name, *inputs[name][1:])
         if name == "bitmm":
@@ -950,14 +1096,26 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             row["batch_of_4"] = measure(name, (a, x[:, :32]), kw)
             row["max_abs_err"] = max(row["max_abs_err"],
                                      row["batch_of_4"]["max_abs_err"])
+            row["batch_of_4"]["library_ms"] = bitmm_library_ms(
+                torch, a, x[:, :32], **kw)
+            log(f"[{card}] kernel bitmm at B = 32: library torch._int_mm of "
+                f"the unpacked int8 A by X "
+                f"{row['batch_of_4']['library_ms']:.6f} ms")
         if name == "expand_pairs":
             # the whole-graph enumerator's frontier page on the serve path
             serve = measure(name, *inputs["expand_pairs@serve"][1:])
             row["serve"] = serve
             row["max_abs_err"] = max(row["max_abs_err"],
                                      serve["max_abs_err"])
+        if name == "transpose":
+            row.update({k: m[k] for k in ("copy_ms", "word_transpose_ms")})
         if name == "closure_step":
             row["closure"] = closure_info
+            # the dense closure: every row of its last step is dense
+            dense = closure_row(inputs["closure_step@human"][1][0])
+            row["human"] = dense | {"closure": dense_info}
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     dense["max_abs_err"])
         log(f"[{card}] kernel {name}: launches {by_path} (GM.match path per "
             f"query {row['launches_per_query']})")
         rows.append(row)
@@ -1026,20 +1184,25 @@ def main() -> int:
     capture.on = False
     capture.own("bitmm")                 # drop the serve graph's stack
     t2 = time.perf_counter()
-    closure_launches, last_r, closure_info = closure_path(
+    closure_launches, last_r, closure_t, closure_info = closure_path(
         torch, card, graph, queries, refs, exact)
     capture.inputs["closure_step"] = (last_r.numel(), (last_r,), {})
+    capture.inputs["transpose"] = (closure_t.numel(), (closure_t,), {})
     if args.scale == 1.0 and closure_info["steps"] != 17:
         raise AssertionError(f"{closure_info['steps']} closure steps at "
                              f"the full epinions profile, not 17")
     t3 = time.perf_counter()
+    human_r, dense_info = dense_closure_case(torch, card)
+    capture.inputs["closure_step@human"] = (human_r.numel(), (human_r,), {})
+    t4 = time.perf_counter()
     log(f"[{card}] GM.match path {t1 - t0:.1f} s, serve path "
-        f"{t2 - t1:.1f} s, closure path {t3 - t2:.1f} s")
+        f"{t2 - t1:.1f} s, closure path {t3 - t2:.1f} s, dense closure "
+        f"{t4 - t3:.1f} s")
     rows = kernel_phase(torch, np, card,
                         {"gm_match": gm_launches, "serve": serve_launches,
                          "closure": closure_launches},
                         per_query, device_calls, capture.inputs,
-                        closure_info)
+                        closure_info, dense_info)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

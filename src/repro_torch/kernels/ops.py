@@ -3,7 +3,8 @@
 
 There is no ``impl`` switch: each wrapper launches its CUDA kernel on a
 CUDA tensor and runs its plain PyTorch version on a CPU tensor.
-``transitive_closure`` repeats ``closure_step`` (the on-device closure of
+``transitive_closure`` repeats ``closure_step`` and ``transpose`` turns
+its result into the transposed matrix (the on-device closure of
 ``from_host(closure_on_device=True)``).
 """
 
@@ -15,10 +16,11 @@ from typing import Optional
 import torch
 
 from .bitmm import bitmm
-from .closure import closure_step
+from .closure import closure_step, transpose
 from .intersect import intersect
 
-__all__ = ["bitmm", "closure_step", "intersect", "transitive_closure"]
+__all__ = ["bitmm", "closure_step", "intersect", "transitive_closure",
+           "transpose"]
 
 
 def transitive_closure(adj_words: torch.Tensor, *,

@@ -87,6 +87,28 @@ def closure_step_ref(r_words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def closure_row_lists_ref(r_words: torch.Tensor,
+                          cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row lists of ``closure_step``'s first pass: int32 lanes
+    (N, N/32) -> (cnt (N,) int32, each row's set bits; lists (N, cap)
+    int32, the set columns of each row with ``cnt <= cap`` in ascending
+    order, -1 past its count and in every row with more)."""
+    n = r_words.shape[0]
+    cnt = torch.empty(n, dtype=torch.int32, device=r_words.device)
+    lists = torch.full((n, cap), -1, dtype=torch.int32,
+                       device=r_words.device)
+    cols = torch.arange(n, dtype=torch.int32, device=r_words.device)
+    for r0 in range(0, n, _CLOSURE_ROW_BLOCK):
+        rows = packed.unpack(r_words[r0:r0 + _CLOSURE_ROW_BLOCK], n)
+        c = rows.sum(dim=1)
+        cnt[r0:r0 + rows.shape[0]] = c.to(torch.int32)
+        key = torch.where(rows, cols, n)          # n sorts past every column
+        first = key.topk(min(cap, n), dim=1, largest=False).values
+        first = torch.where((first < n) & (c <= cap)[:, None], first, -1)
+        lists[r0:r0 + rows.shape[0], :first.shape[1]] = first
+    return cnt, lists
+
+
 def intersect_ref(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K-way AND + popcount.
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.graph import DataGraph
-from ..kernels import ops, packed
+from ..kernels import ops
 from ..obs.ledger import get_ledger
 from .frontier import resolve
 
@@ -87,7 +87,7 @@ def from_host(graph: DataGraph, block: int = 512,
     ledger's ``label_build`` h2d charge is the JAX package's: labels and
     four matrices.  With ``closure_on_device`` the host index is never
     built: ``transitive_closure`` squares the uploaded adjacency on the
-    device into ``reach`` and :func:`repro_torch.kernels.packed.transpose`
+    device into ``reach`` and :func:`repro_torch.kernels.ops.transpose`
     writes ``reach_t``, so only labels, ``adj`` and ``adj_t`` are shipped
     and charged (the JAX package charges all four matrices there too,
     because it pulls the closure back to the host and uploads it again).
@@ -118,7 +118,7 @@ def from_host(graph: DataGraph, block: int = 512,
     closure_s = 0.0
     if closure_on_device:
         ops.transitive_closure(stack[0], out=stack[1])
-        packed.transpose(stack[1], out=stack[3])
+        ops.transpose(stack[1], out=stack[3])
         _fence(dev)
         closure_s = time.perf_counter() - t2
     shipped = labels.nbytes + len(host) * n_pad * w * 4

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import packed  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 N_PAD, W, B = 76_288, 2_384, 64
 
@@ -80,3 +82,47 @@ def test_word_kernel_bounds_keep_their_basis(smoke):
     assert nbytes == 4 * (65_536 * W + 2 * 65_536)
     assert ops == 3 * 65_536 * W
     assert by == "bytes"
+
+
+def test_transpose_bound_is_its_bytes(smoke):
+    """The packed transpose reads the closure once and writes it once
+    (1,454,964,736 B at epinions, 0.434 ms at 3.35 TB/s); its five swap
+    stages are far below the word-operation rate."""
+    words = torch.empty((N_PAD, W), dtype=torch.int32, device="meta")
+    least, by, nbytes, ops = smoke.bound_ms("transpose", (words,), {})
+    assert nbytes == 2 * 4 * N_PAD * W == 1_454_964_736
+    assert ops == 5 * N_PAD * W
+    assert by == "bytes"
+    assert least == pytest.approx(0.434318, abs=1e-6)
+
+
+def _packed_rows(rows, n):
+    dense = torch.zeros((n, n), dtype=torch.bool)
+    for i, cols in rows.items():
+        dense[i, cols] = True
+    return packed.pack(dense)
+
+
+@pytest.mark.parametrize("case", ["chain", "hub_dense", "empty"])
+def test_closure_step_bound_counts_the_list_work(smoke, case):
+    """closure_step moves R once and R' once; its operations are the list
+    work of its two passes, counted by hand on small inputs (the count
+    depends on the data, so these are CPU tensors, not meta)."""
+    n, w = 64, 2
+    if case == "chain":             # row i lists i + 1 (one entry each)
+        r = _packed_rows({i: [i + 1] for i in range(n - 1)}, n)
+        # own entries: n - 1; listed rows 1 .. n - 1 hold 1, 1, ..., 0
+        want = 2 * n * w + (n - 1) + (n - 2)
+    elif case == "hub_dense":       # row 0 all ones, every other row {0}
+        r = _packed_rows({0: list(range(n)),
+                          **{i: [0] for i in range(1, n)}}, n)
+        # row 0 dense: W to copy; rows 1..63 one own entry; column 0 is
+        # listed by all 64 rows and is dense (W each); columns 1..63 by
+        # row 0 only, one entry each
+        want = 2 * n * w + (w + (n - 1)) + (n * w + (n - 1))
+    else:
+        r = torch.zeros((n, w), dtype=torch.int32)
+        want = 2 * n * w
+    nbytes, ops = smoke.bound("closure_step", (r,), {})
+    assert nbytes == 2 * 4 * n * w
+    assert ops == want

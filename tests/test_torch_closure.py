@@ -32,9 +32,11 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.closure import closure_step_pallas  # noqa: E402
 from repro.obs.ledger import LEDGER as J_LEDGER  # noqa: E402
 from repro_torch.convert import graph_from_arrays, query_from_spec  # noqa: E402
-from repro_torch.kernels import ops, packed  # noqa: E402
+from repro_torch.kernels import launch_counts, ops, packed  # noqa: E402
+from repro_torch.kernels import reset_launch_counts  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
-from repro_torch.kernels.closure import closure_step  # noqa: E402
+from repro_torch.kernels.closure import (LIST_CAP, closure_step,  # noqa: E402
+                                        row_lists, transpose)
 from repro_torch.obs.ledger import LEDGER as P_LEDGER  # noqa: E402
 from repro_torch.torchgm import TorchGM  # noqa: E402
 from repro_torch.torchgm import device_graph as pdgm  # noqa: E402
@@ -187,6 +189,70 @@ def test_transpose_matches_dense(n, chunk, monkeypatch):
         packed.transpose(got[:n // 2])
 
 
+@pytest.mark.parametrize("n", [32, 96, 320])
+def test_transpose_wrapper_cpu_route_matches_jax_dense_t(n):
+    """The wrapper on a CPU tensor runs the plain version and equals the
+    JAX package's packing of ``dense.T`` (its ``from_host`` transposes
+    on the host); no kernel launch is counted."""
+    dense = np.random.default_rng(n + 1).random((n, n)) < 0.2
+    want = words(jpacked.pack(jnp.asarray(np.ascontiguousarray(dense.T))))
+    src = packed.pack(torch.from_numpy(dense))
+    reset_launch_counts()
+    got = transpose(src)
+    assert np.array_equal(words(got), want)
+    out = torch.full_like(src, -1)
+    assert transpose(src, out=out) is out
+    assert np.array_equal(words(out), want)
+    assert ops.transpose is transpose
+    assert launch_counts() == {}
+
+
+def test_transpose_wrapper_rejects_bad_arguments():
+    src = packed.pack(torch.from_numpy(
+        np.random.default_rng(2).random((64, 64)) < 0.3))
+    with pytest.raises(ValueError, match="overlaps"):
+        transpose(src, out=src)
+    flat = torch.zeros(64 * 2 + 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="overlaps"):
+        transpose(flat[:128].view(64, 2), out=flat[2:].view(64, 2))
+    with pytest.raises(ValueError, match="square"):
+        transpose(src[:32])
+    with pytest.raises(ValueError, match="shape"):
+        transpose(src, out=torch.zeros((32, 1), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        transpose(src.to(torch.int64))
+    with pytest.raises(TypeError):
+        transpose(src, out=torch.zeros((64, 2), dtype=torch.int64))
+    with pytest.raises(ValueError, match="rank"):
+        transpose(src.reshape(-1))
+    with pytest.raises(ValueError, match="contiguous"):
+        transpose(torch.zeros((64, 4), dtype=torch.int32)[:, ::2])
+
+
+@pytest.mark.parametrize("n,density", [(96, 0.05), (96, 0.5), (320, 0.08)])
+def test_row_lists_cpu_route_matches_numpy(n, density):
+    """``closure_step``'s first pass on the CPU: each row's exact count,
+    and the ascending set columns of each row with at most LIST_CAP of
+    them (-1 past the count and in every row with more)."""
+    dense = np.random.default_rng(n).random((n, n)) < density
+    dense[0] = False
+    dense[1, :LIST_CAP] = True
+    dense[1, LIST_CAP:] = False
+    dense[2, :LIST_CAP + 1] = True
+    cnt, lists = row_lists(packed.pack(torch.from_numpy(dense)))
+    assert cnt.dtype == lists.dtype == torch.int32
+    assert lists.shape == (n, LIST_CAP)
+    assert np.array_equal(cnt.numpy(), dense.sum(axis=1))
+    for i in range(n):
+        cols = np.flatnonzero(dense[i])
+        want = np.full(LIST_CAP, -1)
+        if cols.size <= LIST_CAP:
+            want[:cols.size] = cols
+        assert np.array_equal(lists[i].numpy(), want), i
+    with pytest.raises(ValueError, match="square"):
+        row_lists(packed.pack(torch.from_numpy(dense))[:32])
+
+
 # ------------------------------------------------------ from_host, the graph
 @pytest.mark.parametrize("n,block", [(70, 128), (300, 128), (129, 32)])
 def test_from_host_closure_on_device_matches_jax_and_host_index(n, block):
@@ -204,6 +270,22 @@ def test_from_host_closure_on_device_matches_jax_and_host_index(n, block):
     assert torch.equal(pdg.stack, host.stack)
     assert torch.equal(pdg.labels, host.labels)
     assert pdg.closure_s >= 0 and host.closure_s == 0
+
+
+def test_from_host_closure_on_device_transposes_through_the_wrapper(
+        monkeypatch):
+    pg = _port_graph(random_labeled_graph(100, avg_degree=2.5, n_labels=3,
+                                          seed=8))
+    calls = []
+
+    def counted(words_, out=None):
+        calls.append(out.data_ptr())
+        return transpose(words_, out=out)
+
+    monkeypatch.setattr(ops, "transpose", counted)
+    pdg = pdgm.from_host(pg, block=BLOCK, closure_on_device=True)
+    assert calls == [pdg.reach_t.data_ptr()]
+    assert torch.equal(pdg.stack, pdgm.from_host(pg, block=BLOCK).stack)
 
 
 def test_from_host_closure_on_device_never_builds_host_index():

@@ -19,7 +19,8 @@ from repro_torch.data.queries import random_query_from_graph  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import ops, packed  # noqa: E402
 from repro_torch.kernels.bitmm import bitmm  # noqa: E402
-from repro_torch.kernels.closure import closure_step  # noqa: E402
+from repro_torch.kernels.closure import (LIST_CAP, closure_step,  # noqa: E402
+                                        row_lists, transpose)
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
@@ -219,6 +220,78 @@ def test_closure_step_kernel_equals_plain(cuda, n, density):
     assert closure_step(r, out=out) is out and torch.equal(out, got)
 
 
+def _structured(kind, n):
+    """A 0/1 (n, n) matrix whose rows exercise both paths of the kernel:
+    ``mixed``, rows past the list capacity (every third row, and row 1 with
+    33 bits) among sparse ones (row 0 with exactly 32 bits); ``hub``, a
+    sparse column listed by every row; ``hub_dense``, the same hub with a
+    dense row of its own; ``powerlaw``, Zipf row degrees."""
+    rng = np.random.default_rng(n + len(kind))
+    dense = np.zeros((n, n), dtype=bool)
+    if kind == "mixed":
+        deg = np.where(np.arange(n) % 3 == 0, rng.integers(33, 200, n),
+                       rng.integers(0, 33, n))
+        deg[:4] = (32, 33, 0, 1)
+    elif kind.startswith("hub"):
+        deg = rng.integers(0, 8, n)
+    else:
+        deg = rng.zipf(1.6, n)
+    for i, d in enumerate(np.minimum(deg, n)):
+        dense[i, rng.choice(n, size=d, replace=False)] = True
+    if kind.startswith("hub"):
+        dense[:, 7] = True
+        if kind == "hub_dense":
+            dense[7, rng.choice(n, size=min(n, 100), replace=False)] = True
+    return dense
+
+
+CLOSURE_KINDS = ["mixed", "hub", "hub_dense", "powerlaw"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [96, 1024, 1056])
+@pytest.mark.parametrize("kind", CLOSURE_KINDS)
+def test_closure_step_kernel_structured_rows(cuda, kind, n):
+    """Two steps, so that the second takes the rows that the first made
+    dense; n = 96 and 1,056 take the 4-byte path."""
+    r = _packed(_structured(kind, n), cuda)
+    for _ in range(2):
+        nxt = closure_step(r)
+        assert torch.equal(nxt, ref.closure_step_ref(r))
+        r = nxt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [96, 1024])
+@pytest.mark.parametrize("kind", CLOSURE_KINDS)
+def test_closure_row_lists_kernel_equals_plain(cuda, kind, n):
+    """The first pass: exact counts of every row, dense ones included, and
+    the ascending column list of every sparse row."""
+    dense = _structured(kind, n)
+    r = _packed(dense, cuda)
+    reset_launch_counts()
+    cnt, lists = row_lists(r)
+    assert launch_counts() == {"closure_row_lists": 1}
+    want_cnt, want_lists = ref.closure_row_lists_ref(r, LIST_CAP)
+    assert torch.equal(cnt, want_cnt)
+    assert np.array_equal(cnt.cpu().numpy(), dense.sum(axis=1))
+    sparse = cnt <= LIST_CAP
+    listed = torch.arange(LIST_CAP, device=cuda) < cnt[:, None]
+    assert torch.equal(torch.where(listed & sparse[:, None], lists, -1),
+                       want_lists)
+    assert bool((~sparse).any()) == (kind != "hub")
+
+
+@pytest.mark.cuda
+def test_closure_step_kernel_misaligned(cuda):
+    """R off a 16-byte boundary with W % 4 == 0 takes the 4-byte path."""
+    n = 1024
+    words = packed.pack(torch.from_numpy(_structured("mixed", n))).reshape(-1)
+    r = torch.cat([words[:1], words]).to(cuda)[1:].view(n, n // 32)
+    assert r.data_ptr() % 16
+    assert torch.equal(closure_step(r), ref.closure_step_ref(r))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fill", [False, True])
 def test_closure_step_kernel_empty_and_full(cuda, fill):
@@ -281,3 +354,34 @@ def test_closure_on_device_on_card_equals_host_index_stack(cuda, n, block):
     got = TorchGM(g, block=block, capacity=1 << 16, exact_sim=True,
                   closure_on_device=True).match(q)
     assert not got.overflowed and got.count == want.count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 96, 384, 512, 1056, 4128])
+def test_transpose_kernel_equals_plain(cuda, n):
+    """W = 1, 3, 33 and 129 take the 4-byte path; W = 12 a ragged tile on
+    the 16-byte path."""
+    dense = np.random.default_rng(n).random((n, n)) < 0.3
+    words = _packed(dense, cuda)
+    reset_launch_counts()
+    got = transpose(words)
+    assert launch_counts() == {"transpose": 1}
+    assert torch.equal(got, packed.transpose(words))
+    assert torch.equal(got, _packed(np.ascontiguousarray(dense.T), cuda))
+    out = torch.full_like(words, -1)
+    assert transpose(got, out=out) is out and torch.equal(out, words)
+
+
+@pytest.mark.cuda
+def test_transpose_kernel_misaligned_and_rejects_overlap(cuda):
+    n, w = 512, 16
+    flat = _lanes(np.random.default_rng(3), n * w + 8).to(cuda)
+    words = flat[1:n * w + 1].view(n, w)
+    assert words.data_ptr() % 16
+    assert torch.equal(transpose(words), packed.transpose(words))
+    with pytest.raises(ValueError, match="overlaps"):
+        transpose(words, out=words)
+    with pytest.raises(ValueError, match="overlaps"):
+        transpose(flat[:n * w].view(n, w), out=flat[8:].view(n, w))
+    with pytest.raises(ValueError, match="square"):
+        transpose(words[:64])
