@@ -26,8 +26,11 @@
    Every request must be done with the host ``GM`` count (where the host
    stops at its 10^7 limit and the device answered, with the exact count
    of the resident ``GM.match`` method), at least one must be answered on
-   the device without overflow, and ``bitmm`` and ``expand_pairs`` must be
-   launched (counts reset just before the phase and read just after).
+   the device without overflow, and ``bitmm`` and ``gather_expand`` (the
+   enumerator's fused level) must be launched, and ``expand_pairs`` not
+   inside the ``TorchGM`` calls (the engine's resident lane may launch
+   it; counts reset just before the phase and read just after).  Prints each
+   request's simulation and enumeration seconds.
 4. Closure path, on the same graph object, after the serve path's engine
    is freed: ``TorchGM(graph, closure_on_device=True)`` squares the
    reachability matrix out of the uploaded adjacency with 17
@@ -37,17 +40,23 @@
    index; both answer the serve path's 12 requests through
    ``match_batch`` in batches of 8 and 4, with equal counts and overflow
    flags, and counts equal to the host ``GM``'s where nothing
-   overflowed.  Prints ``closure_s``, each step's kernel time (CUDA
-   events), the transpose time, the step after which R stopped changing
-   (found after the timed run) and the bytes shipped.
+   overflowed; ``gather_expand`` launched and ``expand_pairs`` not.
+   Prints ``closure_s``, each step's kernel time (CUDA events), the
+   transpose time, the step after which R stopped changing (found after
+   the timed run) and the bytes shipped.
 5. Dense closure: the paper's Table 1 ``human`` profile (4,674 nodes,
    uniform, n_pad 5,120), whose closure is all ones, built the same way
    on the card and held to the host index's stack; prints each step's
    time (from the second step on every row takes the kernel's whole-row
    path).
-6. Holds each kernel to its plain PyTorch version on the card, exactly, on
-   the largest input its path gave it (``expand_pairs``: also the serve
-   path's last frontier page; ``closure_step``: the last step's R, and
+6. A count past 2^31: a directed cycle of 46,341 nodes with one label,
+   ``TorchGM`` from the host index with 65,536 frontier rows, and a
+   2-node ``//`` query, whose count must equal the host reachability
+   index's row sizes summed (n^2 = 2,147,488,281), with no overflow.
+7. Holds each kernel to its plain PyTorch version on the card, exactly, on
+   the largest input its path gave it (``gather_expand``: the serve
+   path's largest expanded level; ``expand_pairs``: also that level's AND
+   rows, 65,536 x 2,384 lanes; ``closure_step``: the last step's R, and
    the human profile's; ``transpose``: the closure) and on ragged edge
    cases, and times both with CUDA events beside the kernel's bound:
    ``ms`` is the kernel's device time per call with a cold L2 (each call
@@ -58,12 +67,14 @@
    ``library_ms`` one PyTorch call computing the same product where there
    is one (``closure_step``: ``torch.matmul`` of the unpacked bf16 R by
    itself; ``bitmm``: ``torch._int_mm`` of the unpacked int8 A by X, held
-   to the kernel's output, at B = 64 and at B = 32; none for
-   ``transpose``).  ``bitmm`` is also timed at B = 32 (the batch of 4)
+   to the kernel's output, at B = 64 and at B = 32; ``expand_pairs``:
+   ``torch.nonzero_static`` of the page's bits, unpacked beforehand and
+   not timed, at both shapes; none for ``transpose``, ``gather_expand``,
+   ``gather_intersect`` and ``intersect``).  ``bitmm`` is also timed at B = 32 (the batch of 4)
    and its CUDA-core floor printed.  Bounds: bytes over 3.35 TB/s
    against operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor
    cores) and over 67 T/s for the others.
-7. Prints the ``kernels`` JSON line, the card's name and power limit, and
+8. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without CUDA, or without the
@@ -75,9 +86,9 @@ from __future__ import annotations
 
 import argparse
 import gc
-import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +106,7 @@ FLUSH_BYTES = 256 << 20          # written between timed calls: > 50 MB L2
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gather_intersect": CSRC + "frontier_kernels.cu",
            "expand_pairs": CSRC + "frontier_kernels.cu",
+           "gather_expand": CSRC + "frontier_kernels.cu",
            "intersect": CSRC + "frontier_kernels.cu",
            "bitmm": CSRC + "bitmm.cu",
            "closure_step": CSRC + "closure.cu",
@@ -102,6 +114,8 @@ SOURCES = {"gather_intersect": CSRC + "frontier_kernels.cu",
 REPLACES = {
     "gather_intersect": "src/repro/kernels/gather_intersect.py:96",
     "expand_pairs": "src/repro/kernels/gather_intersect.py:124",
+    # the whole-graph enumerator's level, fused by XLA: not a Pallas kernel
+    "gather_expand": "src/repro/jaxgm/enumerate.py:65-104",
     "intersect": "src/repro/kernels/intersect.py:79",
     "bitmm": "src/repro/kernels/bitmm.py:76",
     "closure_step": "src/repro/kernels/closure.py:75",
@@ -109,8 +123,10 @@ REPLACES = {
     "transpose": "src/repro/jaxgm/device_graph.py:76-78",
 }
 GM_KERNELS = ("gather_intersect", "expand_pairs", "intersect")
-SERVE_KERNELS = ("bitmm", "expand_pairs")
-CLOSURE_KERNELS = ("closure_step", "transpose", "bitmm", "expand_pairs")
+SERVE_KERNELS = ("bitmm", "gather_expand")
+CLOSURE_KERNELS = ("closure_step", "transpose", "bitmm", "gather_expand")
+# the whole-graph enumerator's levels go through gather_expand alone
+NOT_ON_WHOLE_GRAPH = ("expand_pairs",)
 # two of the four queries of the first slice (D s1: the largest resident
 # RIG; H s0: the smallest), so that the serve path fits the time limit
 QUERIES = (("D", 1), ("H", 0))
@@ -119,6 +135,8 @@ BATCH = 8
 # frontier rows of the whole-graph matcher: 10 of the 12 requests finish on
 # the device without overflow
 CAPACITY = 1 << 16
+# the count past 2^31: a directed cycle of this many nodes (n^2 >= 2^31)
+CYCLE_NODES = 46_341
 # per-batch deadline of the server: the host re-run of an overflowed
 # request (10^7 results) takes tens of seconds, and the default 30 s would
 # split the first batch and serve its requests twice
@@ -135,6 +153,16 @@ def card_line() -> str:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_name(line: str) -> str:
+    """A kernel's name and template arguments from the mangled name in a
+    ptxas "Compiling entry function" line (``segment_counts_kernel<1, 4>``)."""
+    m = re.search(r"\d([a-z_]+_kernel)(I(?:L[a-z]\d+E)+E)?(?=[IE])", line)
+    if m is None:
+        return line.strip()
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 # ----------------------------------------------------------------- timing
@@ -198,6 +226,10 @@ def set_bits(words) -> int:
 def max_abs_err(got, want) -> int:
     err = 0
     for g, w in zip(got, want):
+        if g is None and w is None:          # pairs of a count-only call
+            continue
+        if g is None or w is None:
+            raise AssertionError("one side returned no pairs")
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype mismatch: {g.shape} "
                                  f"{g.dtype} vs {w.shape} {w.dtype}")
@@ -209,26 +241,34 @@ def max_abs_err(got, want) -> int:
 # -------------------------------------------------------------- main path
 class Capture:
     """Records, under a key, the largest input a kernel wrapper received
-    through one module's name for it on the main paths (the wrapper
-    itself, and its launch count, are untouched); ``on`` pauses it."""
+    through one module's name for it on the main paths, or with no size
+    every input, of which :meth:`keep_largest` picks one after the path
+    (the wrapper itself, and its launch count, are untouched); ``on``
+    pauses it."""
 
     def __init__(self, specs):
         self.inputs = {}
+        self.every = {}
         self.on = True
         for module, name, key, size in specs:
             setattr(module, name, self._wrap(key, getattr(module, name),
                                              size))
 
-    def own(self, key):
-        """Replace a kept input's tensors by copies, so that the kept
-        views no longer hold the storage they were cut from."""
-        size, args, kw = self.inputs[key]
-        self.inputs[key] = (size, tuple(a.clone() for a in args), kw)
+    def keep_largest(self, key, size):
+        """Of the inputs kept whole under ``key`` (a size that would wait
+        for the device is taken only now, after the path), keep the one
+        of largest ``size``; returns its size."""
+        best = max(self.every.pop(key, []), key=lambda a: size(*a[0], **a[1]))
+        s = size(*best[0], **best[1])
+        self.inputs[key] = (s, *best)
+        return s
 
     def _wrap(self, key, fn, size):
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
-            if self.on:
+            if self.on and size is None:
+                self.every.setdefault(key, []).append((args, kw))
+            elif self.on:
                 s = size(*args, **kw)
                 if key not in self.inputs or s > self.inputs[key][0]:
                     self.inputs[key] = (s, args, kw)
@@ -238,13 +278,12 @@ class Capture:
 
 def capture_inputs():
     """The GM.match path's executor kernels, the serve path's bitmm and
-    the whole-graph enumerator's expand_pairs (every page there has the
-    same shape: the last one is kept, a full page when a request
-    overflowed)."""
+    the whole-graph enumerator's levels (``gather_expand``: every level is
+    kept, and the largest picked after the path, since its live rows are a
+    device scalar)."""
     import repro_torch.torchgm.enumerate as enumerator
     from repro_torch.kernels import ops
     from repro_torch.torchgm import frontier
-    page = itertools.count()
     return Capture((
         (frontier, "gather_intersect", "gather_intersect",
          lambda m, i, w32: i.shape[0] * i.shape[1] * w32),
@@ -253,9 +292,14 @@ def capture_inputs():
         (frontier, "intersect", "intersect", lambda r: r.numel()),
         (ops, "bitmm", "bitmm",
          lambda a, x, threshold=True: a.numel() * x.shape[1]),
-        (enumerator, "expand_pairs", "expand_pairs@serve",
-         lambda a, n_i, size: (a.numel() + size, next(page))),
+        (enumerator, "gather_expand", "gather_expand", None),
     ))
+
+
+def level_size(mats, fb_row, idx, n_alive, *, n_i, size, expand=True):
+    """A captured level's rank: expanded levels first, then the rows its
+    live rows gather (waits for the device)."""
+    return (expand, int(n_alive) * (idx.shape[1] + 1))
 
 
 def gm_path(torch, card: str, graph, gm):
@@ -329,13 +373,15 @@ def gm_path(torch, card: str, graph, gm):
 
 class DeviceCalls:
     """Records each ``TorchGM.match`` / ``match_batch`` result with the
-    ``bitmm`` launches of its call, keyed by the reduced query's shape
+    ``bitmm`` launches of its call, keyed by the reduced query's shape,
+    and sums every kernel's launches inside these calls in ``launched``
     (the matcher itself is untouched)."""
 
     def __init__(self, cls):
         from repro_torch.kernels import launch_counts
         self.by_query = {}
         self.calls = []
+        self.launched = {}
         self.matcher = None
         self.cls = cls
         self.saved = {}
@@ -343,9 +389,13 @@ class DeviceCalls:
             fn = self.saved[name] = getattr(cls, name)
 
             def wrapped(gm, arg, *a, _fn=fn, **kw):
-                before = launch_counts().get("bitmm", 0)
+                before = launch_counts()
                 out = _fn(gm, arg, *a, **kw)
-                bitmm = launch_counts().get("bitmm", 0) - before
+                after = launch_counts()
+                for k, v in after.items():
+                    self.launched[k] = (self.launched.get(k, 0) + v
+                                        - before.get(k, 0))
+                bitmm = after.get("bitmm", 0) - before.get("bitmm", 0)
                 self.matcher = gm
                 qs, rs = (arg, out) if isinstance(out, list) else \
                     ([arg], [out])
@@ -446,7 +496,9 @@ def serve_path(torch, card: str, graph, gm, capture):
     log(f"[{card}] serve path: {on_device}/{N_REQUESTS} answered on the "
         f"device without overflow; wall {wall:.2f} s; server "
         f"{server.stats}; {server.stats_line()}")
-    log(f"serve path launches: {json.dumps(total, sort_keys=True)}")
+    log(f"serve path launches: {json.dumps(total, sort_keys=True)} (in "
+        f"TorchGM calls {json.dumps(calls.launched, sort_keys=True)}; the "
+        f"rest in the engine's other lanes)")
     if on_device == 0:
         raise AssertionError("no request was answered on the device "
                              "without overflow")
@@ -454,6 +506,10 @@ def serve_path(torch, card: str, graph, gm, capture):
         if total.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serve path")
+    for name in NOT_ON_WHOLE_GRAPH:
+        if calls.launched.get(name, 0):
+            raise AssertionError(f"kernel {name} was launched by the "
+                                 f"whole-graph matcher on the serve path")
     calls.restore()
     return total, calls.calls, queries, refs, exact
 
@@ -603,6 +659,10 @@ def closure_path(torch, card: str, graph, queries, refs, exact):
         if total.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"closure path")
+    for name in NOT_ON_WHOLE_GRAPH:
+        if total.get(name, 0):
+            raise AssertionError(f"kernel {name} was launched on the "
+                                 f"closure path")
     if total["closure_step"] != steps:
         raise AssertionError(f"closure_step launched {total['closure_step']}"
                              f" times on the closure path, not {steps}")
@@ -688,6 +748,51 @@ def dense_closure_case(torch, card: str):
     return timer.inputs["closure_step"], info
 
 
+def int64_count_case(torch, card: str):
+    """A count past 2^31: on a directed cycle of ``CYCLE_NODES`` nodes with
+    one label every node reaches every node, so the 2-node ``//`` query
+    has n^2 = 2,147,488,281 occurrences, and the whole-graph matcher must
+    count them exactly (the last level's total in int64), equal to the
+    host reachability index's row sizes summed, without overflow.
+    Returns the phase's launch counts."""
+    import numpy as np
+    from repro_torch.convert import graph_from_arrays, query_from_spec
+    from repro_torch.core import bitset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.torchgm.matcher import TorchGM
+
+    n = CYCLE_NODES
+    nodes = np.arange(n)
+    graph = graph_from_arrays(n, np.zeros(n, dtype=np.int32), 1,
+                              np.stack([nodes, (nodes + 1) % n], axis=1))
+    t0 = time.perf_counter()
+    want = int(bitset.count_rows(graph.reachability().reach_bits).sum())
+    host_s = time.perf_counter() - t0
+    gm = TorchGM(graph, capacity=CAPACITY, exact_sim=True)
+    query = query_from_spec([0, 0], [(0, 1, 1)])
+    reset_launch_counts()                # just before the count
+    got = gm.match(query)
+    torch.cuda.synchronize()
+    launched = launch_counts()           # just after it
+    log(f"[{card}] count past 2^31: directed cycle of {n} nodes, one label,"
+        f" query {query}: count {got.count} (host reachability index row "
+        f"sizes summed {want}, {host_s:.2f} s; 2^31 = {2 ** 31}), overflow "
+        f"{got.overflowed}; simulation {got.sim_s:.4f} s, enumerate "
+        f"{got.enumerate_s:.4f} s; TorchGM n_pad {gm.dg.n_pad}, set-up "
+        f"{gm.build_s + gm.upload_s:.2f} s; launches "
+        f"{json.dumps(launched, sort_keys=True)}")
+    if want != n * n or got.count != want or got.overflowed:
+        raise AssertionError(f"cycle of {n}: count {got.count} overflow "
+                             f"{got.overflowed}, host index {want}, n^2 "
+                             f"{n * n}")
+    if launched.get("gather_expand", 0) == 0 or "expand_pairs" in launched:
+        raise AssertionError(f"cycle of {n}: launches {launched}")
+    del gm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 # ---------------------------------------------------------------- kernels
 def bound(name: str, args, kw):
     """(bytes, operations) the call must move / do on these inputs."""
@@ -723,6 +828,18 @@ def bound(name: str, args, kw):
         (words,) = args
         n, w = words.shape
         return 2 * 4 * n * w, 5 * n * w
+    if name == "gather_expand":
+        # each distinct row the live rows gather read once over the live
+        # lanes, their index, the candidate row and the pairs; one AND or
+        # popcount per gathered lane
+        mats, fb_row, idx, n_alive = args
+        f, k = idx.shape
+        live = min(mats.shape[1], (kw["n_i"] + 31) // 32)
+        alive = max(0, min(int(n_alive), f))
+        distinct = int(idx[:alive].unique().numel())
+        pairs = 2 * kw["size"] if kw.get("expand", True) else 0
+        return (4 * (distinct * live + alive * k + pairs + live),
+                alive * live * (k + 1))
     (and_rows,) = args
     f, w = and_rows.shape
     live = min(w, (kw["n_i"] + 31) // 32)
@@ -767,7 +884,9 @@ def bound_ms(name: str, args, kw):
 
 def edge_cases(torch, np):
     """Seeded ragged inputs: odd lane counts, K=1, tail bits, cut pages;
-    for bitmm B = 1 to 257 across the MMA widths, M off the row tiles,
+    for expand_pairs and gather_expand W % 4 != 0, a ragged n_i, cuts
+    inside a 256-lane segment, zero fills, one wide row, all-ones rows, a
+    misaligned input, Kc 0 to 40 and n_alive 0 to past F; for bitmm B = 1 to 257 across the MMA widths, M off the row tiles,
     W % 4 != 0, K below 32 W, a misaligned A, X as a transposed view, a
     float and a strided slice, sum mode, all-zero and all-ones A; for
     closure_step N = 32 to 1,056 at densities 0.001 to 0.3, rows past the
@@ -796,10 +915,41 @@ def edge_cases(torch, np):
         cases.append(("gather_intersect", (m, idx), {"w32": w32}))
     for f, k, w in ((3, 1, 4), (129, 2, 8), (256, 5, 132), (129, 64, 132)):
         cases.append(("intersect", (lanes(f, k, w),), {}))
+    # expand_pairs: W % 4 != 0 (4-byte loads), n_i off a multiple of 32,
+    # a cut inside a 256-lane segment, a zero fill, one wide row, all-ones
+    # rows, rows one lane off a 16-byte boundary
     for f, w, n_i, size in ((6, 4, 70, 1024), (6, 4, 70, 37),
-                            (200, 6, 161, 2048), (1, 2, 33, 5)):
+                            (200, 6, 161, 2048), (1, 2, 33, 5),
+                            (300, 130, 4160, 1 << 16), (40, 1024, 32768,
+                                                       12345),
+                            (1, 2384, 76288, 65536)):
         cases.append(("expand_pairs", (lanes(f, w),),
                       {"n_i": n_i, "size": size}))
+    ones = torch.full((33, 300), -1, dtype=torch.int32, device="cuda")
+    cases.append(("expand_pairs", (ones,), {"n_i": 9580, "size": 77777}))
+    cases.append(("expand_pairs", (lanes(50 * 260 + 1)[1:].view(50, 260),),
+                  {"n_i": 8300, "size": 1 << 16}))
+    # gather_expand: Kc 0, 1, 3 and 40 (past a warp's 32 row pointers);
+    # n_alive 0, 1, partial, all and past F; W % 4 != 0; a cut inside a
+    # segment and a zero fill; count only; a misaligned mats
+    mats = lanes(300, 132) | lanes(300, 132)
+    fb = lanes(132) | lanes(132)
+    for f, k, alive, n_i, size, expand in (
+            (1024, 0, 1, 4224, 65536, True), (1024, 1, 700, 4200, 5000, True),
+            (512, 3, 512, 4224, 1 << 16, True), (96, 40, 60, 4224, 4096, True),
+            (256, 2, 0, 4224, 1000, True), (256, 2, 900, 4224, 1 << 15, True),
+            (2048, 2, 1500, 4224, 0, False)):
+        idx = torch.from_numpy(rng.integers(0, 300, size=(f, k)).astype(
+            np.int32)).cuda()
+        n_alive = torch.tensor(alive, dtype=torch.int64, device="cuda")
+        cases.append(("gather_expand", (mats, fb, idx, n_alive),
+                      {"n_i": n_i, "size": size, "expand": expand}))
+    odd = lanes(300 * 130 + 1)[1:].view(300, 130)
+    idx = torch.from_numpy(rng.integers(0, 300, size=(400, 2)).astype(
+        np.int32)).cuda()
+    cases.append(("gather_expand", (odd, lanes(130), idx,
+                                    torch.tensor(333, device="cuda")),
+                  {"n_i": 4150, "size": 1 << 14}))
     # bitmm: B across the MMA widths (zero columns of padding) and past
     # 256 (a second column tile); M one below and past the row tiles (384
     # rows for B <= 64, 128 above); W % 4 != 0 (4-byte copies of A); K
@@ -939,6 +1089,45 @@ def cuda_core_floor_ms(torch, a, x) -> float:
     return m * w * x.shape[1] / (sms * LOP3_PER_SM_CLOCK * mhz * 1e6) * 1e3
 
 
+def expand_library_ms(torch, rows, n_i, size):
+    """``torch.nonzero_static`` of the page's bits (F x n_i bool, unpacked
+    2,048 rows at a time beforehand and not timed), the JAX reference's own
+    form; its flat indices split into (row, column) must equal the
+    kernel's pairs.  Where the card's PyTorch refuses it, ``torch.nonzero``
+    and a slice.  Returns (ms, the call used); (None, why) if neither
+    runs."""
+    from repro_torch.kernels import packed
+    from repro_torch.kernels.gather_intersect import expand_pairs
+    f = rows.shape[0]
+    bits = torch.empty((f, n_i), dtype=torch.bool, device="cuda")
+    for r0 in range(0, f, 2048):
+        bits[r0:r0 + 2048] = packed.unpack(rows[r0:r0 + 2048], n_i)
+    flat = bits.view(-1)
+    calls = (("torch.nonzero_static",
+              lambda: torch.nonzero_static(flat, size=size, fill_value=0)),
+             ("torch.nonzero and a slice",
+              lambda: torch.nonzero(flat)[:size]))
+    ms, used = None, "neither torch.nonzero_static nor torch.nonzero ran"
+    for name, call in calls:
+        try:
+            got = call().view(-1)
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"  {name} on {f} x {n_i} bits: {str(e).splitlines()[0]}")
+            continue
+        rid, cid = expand_pairs(rows, n_i=n_i, size=size)
+        k = got.numel()
+        if not (torch.equal(got // n_i, rid[:k].long())
+                and torch.equal(got % n_i, cid[:k].long())):
+            raise AssertionError(f"{name} disagrees with the expand_pairs "
+                                 f"kernel")
+        del got, rid, cid
+        ms, used = time_ms(torch, call, iters=10, warmup=2), name
+        break
+    del bits, flat
+    torch.cuda.empty_cache()
+    return ms, used
+
+
 def closure_library_ms(torch, r) -> float:
     """One ``torch.matmul`` of the unpacked bf16 R by itself: the product
     at the heart of the closure step, as a library computes it."""
@@ -961,15 +1150,17 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
     from repro_torch.kernels.bitmm import bitmm
     from repro_torch.kernels.closure import closure_step, transpose
     from repro_torch.kernels.gather_intersect import (expand_pairs,
+                                                      gather_expand,
                                                       gather_intersect)
     from repro_torch.kernels.intersect import intersect
 
     kernels = {"gather_intersect": gather_intersect,
-               "expand_pairs": expand_pairs, "intersect": intersect,
-               "bitmm": bitmm, "closure_step": closure_step,
-               "transpose": transpose}
+               "expand_pairs": expand_pairs, "gather_expand": gather_expand,
+               "intersect": intersect, "bitmm": bitmm,
+               "closure_step": closure_step, "transpose": transpose}
     plain = {"gather_intersect": ref.gather_intersect_ref,
              "expand_pairs": ref.expand_pairs_ref,
+             "gather_expand": ref.gather_expand_ref,
              "intersect": ref.intersect_ref, "bitmm": ref.bitmm_ref,
              "closure_step": ref.closure_step_ref,
              "transpose": packed.transpose}
@@ -999,8 +1190,8 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
                                  f"(max abs err {err})")
         del got, want
         least, by, nbytes, ops = bound_ms(name, args, kw)
-        out = {"shape": {k: list(a.shape) for k, a in
-                         zip(("a0", "a1"), args)} | kw,
+        out = {"shape": {f"a{i}": list(a.shape) if a.dim() else int(a)
+                         for i, a in enumerate(args)} | kw,
                "max_abs_err": err,
                "ms": cold_ms(torch, lambda: kern(*args, **kw), flush,
                              iters=reps["cold"]),
@@ -1102,11 +1293,31 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
                 f"the unpacked int8 A by X "
                 f"{row['batch_of_4']['library_ms']:.6f} ms")
         if name == "expand_pairs":
-            # the whole-graph enumerator's frontier page on the serve path
-            serve = measure(name, *inputs["expand_pairs@serve"][1:])
+            args, kw = inputs[name][1:]
+            library_ms, row["library_call"] = expand_library_ms(
+                torch, args[0], kw["n_i"], kw["size"])
+            row["library_ms"] = library_ms
+            # the AND rows of the serve path's largest expanded level (the
+            # page the enumerator expanded before gather_expand fused it)
+            (mats, fb_row, idx, n_alive), lkw = inputs["gather_expand"][1:]
+            page = ref.gather_level_ref(mats, fb_row, idx, n_alive,
+                                        n_i=lkw["n_i"])
+            pkw = {"n_i": lkw["n_i"], "size": lkw["size"]}
+            serve = measure(name, (page,), pkw)
+            serve["library_ms"], serve["library_call"] = expand_library_ms(
+                torch, page, **pkw)
             row["serve"] = serve
             row["max_abs_err"] = max(row["max_abs_err"],
                                      serve["max_abs_err"])
+            del page
+            log(f"[{card}] kernel expand_pairs: library {row['library_call']}"
+                f" {library_ms} ms; at the serve page "
+                f"{serve['library_call']} {serve['library_ms']} ms")
+        if name == "gather_expand":
+            # the same level counted only, as every last level runs it
+            # (pass 1 and the sum, no pairs)
+            args, kw = inputs[name][1:]
+            row["count_only"] = measure(name, args, kw | {"expand": False})
         if name == "transpose":
             row.update({k: m[k] for k in ("copy_ms", "word_transpose_ms")})
         if name == "closure_step":
@@ -1161,9 +1372,12 @@ def main() -> int:
     log(f"[{card}] nvcc build of {len(_build.sources())} source(s): "
         f"{built:.2f} s")
     for src, text in _build.build_log.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+            if "entry function" in line:
+                kernel = kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  {src} {kernel}: {line.strip()}")
 
     capture = capture_inputs()
     t0 = time.perf_counter()
@@ -1182,7 +1396,9 @@ def main() -> int:
     serve_launches, device_calls, queries, refs, exact = serve_path(
         torch, card, graph, gm, capture)
     capture.on = False
-    capture.own("bitmm")                 # drop the serve graph's stack
+    level = capture.keep_largest("gather_expand", level_size)
+    log(f"[{card}] serve path: largest expanded level kept for the kernel "
+        f"phase: {level[1]} gathered rows")
     t2 = time.perf_counter()
     closure_launches, last_r, closure_t, closure_info = closure_path(
         torch, card, graph, queries, refs, exact)
@@ -1195,12 +1411,15 @@ def main() -> int:
     human_r, dense_info = dense_closure_case(torch, card)
     capture.inputs["closure_step@human"] = (human_r.numel(), (human_r,), {})
     t4 = time.perf_counter()
+    int64_launches = int64_count_case(torch, card)
+    t5 = time.perf_counter()
     log(f"[{card}] GM.match path {t1 - t0:.1f} s, serve path "
         f"{t2 - t1:.1f} s, closure path {t3 - t2:.1f} s, dense closure "
-        f"{t4 - t3:.1f} s")
+        f"{t4 - t3:.1f} s, count past 2^31 {t5 - t4:.1f} s")
     rows = kernel_phase(torch, np, card,
                         {"gm_match": gm_launches, "serve": serve_launches,
-                         "closure": closure_launches},
+                         "closure": closure_launches,
+                         "int64_count": int64_launches},
                         per_query, device_calls, capture.inputs,
                         closure_info, dense_info)
 

@@ -7,6 +7,8 @@
 #   gather_intersect.gather_intersect — resident-row gather + K-way AND +
 #                                       popcount
 #   gather_intersect.expand_pairs     — set bits -> (row, column) pages
+#   gather_intersect.gather_expand    — one whole-graph enumerator level:
+#                                       gather, AND, count, expand
 #   intersect.intersect               — K-way AND + popcount of a slab
 # The wrappers launch the kernels on CUDA tensors and run the plain
 # versions on CPU tensors; the kernels are built at first use.  The

@@ -22,20 +22,47 @@
 //   directly (no pointer table, any K).  Bound: memory,
 //   F*(K*W + W + 1)*4 bytes.
 //
-// row_counts + expand_write  replace src/repro/kernels/gather_intersect.py
-//                   expand_pairs (plain XLA on the TPU: unpack + nonzero).
-//   Set bits below column n_i -> the first `size` (row, col) pairs in
-//   row-major order, zero-filled.  Pass 1 counts each row's bits below
-//   n_i (bits at >= n_i do not count); the caller takes the inclusive
-//   scan of the counts; pass 2 gives each row one warp that walks its
-//   lanes 32 at a time, places each lane's bits by a warp prefix sum and
-//   stops at `size`.  Unlike torch.nonzero it never syncs with the host
-//   and its output size is bounded.  Bound: memory, F*w32*4 bytes read
-//   (once per pass) plus 2*size*4 bytes written.
-//
+// segment_counts + segment_write  replace src/repro/kernels/gather_intersect.py
+//                   expand_pairs (plain XLA on the TPU: unpack + nonzero) and,
+//                   in gather mode, the whole-graph enumerator's level
+//                   src/repro/jaxgm/enumerate.py:65-104 (XLA: gather, AND,
+//                   where(alive), popcount, unpack + argsort).
+//   Set bits below column n_i of F rows -> the first `size` (row, col)
+//   pairs in row-major order, zero-filled past the last pair.  A row is
+//   either read directly (expand_pairs: rows (F, w)) or built on the fly
+//   (gather_expand: fb_row AND the Kc rows mats[idx[f, 0..Kc)]), and only
+//   the first n_alive rows are live (n_alive is read on the device, so no
+//   host sync; rows past it count 0 and read nothing).  Each row is cut
+//   into segments of kSegLanes lanes, and the unit of work is one warp
+//   per (row, segment), so a wide row spreads over many warps:
+//   pass 1 (segment_counts) writes one int32 count per segment; the
+//   caller's int64 exclusive scan of the counts in row-major order is
+//   exactly the pair order; pass 2 (segment_write) visits only segments
+//   with bits and with an offset below `size` (a warp looks up 32 items
+//   at once, strided over the grid so that a page whose pairs end early
+//   still spreads over every warp, and stops at the first batch past
+//   `size`), rebuilds the segment's words (re-gathering beats writing and
+//   re-reading a (F, W) scratch block; a gathered row is read only where
+//   the AND so far has bits), places each thread's words by a warp prefix
+//   sum and writes each non-zero word with the whole warp, lane b placing
+//   bit b, so rid and cid go out as contiguous runs; the zero fill is a
+//   grid-stride loop over the whole grid.  Both passes are persistent
+//   grids (a grid-stride loop over the work items), so dead rows cost no
+//   block launches.  16-byte loads when the rows allow it,
+//   else 4-byte ones.
+//   Where the live rows gather the same few rows again (the enumerator's
+//   levels gather hundreds of distinct rows for tens of thousands of live
+//   rows), pass 1 reads them from L2 once per live row, so L2 bandwidth,
+//   not the memory bound below, sets its time.
+//   Bound: memory.  expand_pairs: F*live*4 bytes read plus 2*size*4
+//   written.  gather_expand: 4*(D*live + n_alive*Kc + 2*size) + 4*live
+//   bytes (D distinct rows gathered by the alive rows, each read once;
+//   fb_row once) and n_alive*live*(Kc + 1) word operations.
+
 // Every launcher returns cudaGetLastError(); the caller raises if it is
 // not 0.  Launches go on the caller's stream and never synchronize.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -46,6 +73,10 @@ constexpr int kRowsPerBlock = 8;            // one warp per frontier row
 constexpr int kThreads = kWarp * kRowsPerBlock;
 constexpr int kMaxK = kWarp;                // row pointers per shared chunk
 constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
@@ -139,67 +170,313 @@ __device__ __forceinline__ uint32_t live_bits(uint32_t v, int t, int n_i) {
   return rem >= 32 ? v : (v & ((1u << rem) - 1u));
 }
 
-__global__ void __launch_bounds__(kThreads)
-row_counts_kernel(const uint32_t* __restrict__ rows,
-                  int32_t* __restrict__ counts, int f, int w, int n_i) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
-  if (row >= f) return;
-  const uint32_t* r = rows + row * w;
-  const int live = min(w, (n_i + 31) / 32);
-  int cnt = 0;
-  for (int t = lane; t < live; t += kWarp) cnt += __popc(live_bits(r[t], t, n_i));
-  cnt = warp_sum(cnt);
-  if (lane == 0) counts[row] = cnt;
+constexpr int kSegLanes = 256;              // lanes per segment
+constexpr int kSegWords = kSegLanes / kWarp;  // words a thread holds
+
+// Segment word j of a thread (kVec consecutive lanes per load): its lane
+// offset in the segment.  Steps of kWarp * kVec lanes; thread order
+// inside a step is lane order, so step by step, thread by thread, word by
+// word is row-major bit order.
+template <int kVec>
+__device__ __forceinline__ int seg_offset(int j, int lane) {
+  return kWarp * kVec * (j / kVec) + kVec * lane + j % kVec;
 }
 
+// The thread's kSegWords words of one row's segment [seg0, seg0 +
+// kSegLanes); lanes at or past `live` read nothing and hold 0, bits at or
+// past n_i are cleared.
+template <int kVec>
+__device__ __forceinline__ void load_segment(const uint32_t* __restrict__ row,
+                                             int seg0, int live, int n_i,
+                                             int lane,
+                                             uint32_t (&v)[kSegWords]) {
+#pragma unroll
+  for (int s = 0; s < kSegWords / kVec; ++s) {
+    const int t = seg0 + seg_offset<kVec>(s * kVec, lane);
+    if constexpr (kVec == 4) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      // t % 4 == 0 and W % 4 == 0, so t < live keeps all four in the row
+      if (t < live) q = __ldg(reinterpret_cast<const uint4*>(row + t));
+      v[4 * s] = q.x; v[4 * s + 1] = q.y; v[4 * s + 2] = q.z;
+      v[4 * s + 3] = q.w;
+    } else {
+      v[s] = t < live ? __ldg(row + t) : 0u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSegWords; ++j) {
+    const int t = seg0 + seg_offset<kVec>(j, lane);
+    v[j] = t < live ? live_bits(v[j], t, n_i) : 0u;
+  }
+}
+
+// acc &= the same words of another row, reading only the kVec-lane
+// groups where acc still has a bit (the AND can only clear bits).
+template <int kVec>
+__device__ __forceinline__ void and_segment(const uint32_t* __restrict__ row,
+                                            int seg0, int lane,
+                                            uint32_t (&acc)[kSegWords]) {
+#pragma unroll
+  for (int s = 0; s < kSegWords / kVec; ++s) {
+    const int t = seg0 + seg_offset<kVec>(s * kVec, lane);
+    if constexpr (kVec == 4) {
+      if (acc[4 * s] | acc[4 * s + 1] | acc[4 * s + 2] | acc[4 * s + 3]) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + t));
+        acc[4 * s] &= q.x; acc[4 * s + 1] &= q.y; acc[4 * s + 2] &= q.z;
+        acc[4 * s + 3] &= q.w;
+      }
+    } else {
+      if (acc[s]) acc[s] &= __ldg(row + t);
+    }
+  }
+}
+
+__device__ __forceinline__ bool any_bit(const uint32_t (&acc)[kSegWords]) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int j = 0; j < kSegWords; ++j) v |= acc[j];
+  return __any_sync(kFull, v != 0u);
+}
+
+struct SegmentArgs {
+  const uint32_t* rows;     // direct: (F, w_all) rows; gather: mats
+  const uint32_t* fb;       // gather: the candidate row (W,)
+  const int32_t* idx;       // gather: (F, k) row ids into mats
+  const int64_t* n_alive;   // gather: live rows (0-d, on the device)
+  int64_t w_all;            // row stride of rows / mats, in lanes
+  int f, k, live, n_i, nseg;
+};
+
+__device__ __forceinline__ int64_t live_rows(const SegmentArgs& a) {
+  if (a.n_alive == nullptr) return a.f;
+  const int64_t n = *a.n_alive;
+  return n < 0 ? 0 : min64(n, a.f);
+}
+
+// The words of segment `seg0` of row `row`: the row itself, or fb_row
+// AND the row's k gathered rows (their pointers resolved into the warp's
+// shared table kMaxK at a time, the AND kept in registers; a gathered row
+// is read only where the AND so far has bits, and not at all once the
+// segment's AND is empty).
+template <bool kGather, int kVec>
+__device__ __forceinline__ void segment_words(const SegmentArgs& a,
+                                              int64_t row, int seg0,
+                                              int lane,
+                                              const uint32_t** tab,
+                                              uint32_t (&acc)[kSegWords]) {
+  if constexpr (!kGather) {
+    load_segment<kVec>(a.rows + row * a.w_all, seg0, a.live, a.n_i, lane,
+                       acc);
+  } else {
+    load_segment<kVec>(a.fb, seg0, a.live, a.n_i, lane, acc);
+    for (int j0 = 0; j0 < a.k; j0 += kMaxK) {   // uniform across the warp
+      if (!any_bit(acc)) return;
+      const int kc = min(kMaxK, a.k - j0);
+      __syncwarp();                             // last chunk's readers done
+      if (lane < kc)
+        tab[lane] = a.rows + static_cast<int64_t>(
+                                 a.idx[row * a.k + j0 + lane]) * a.w_all;
+      __syncwarp();
+      for (int j = 0; j < kc; ++j) {
+        if (j > 0 && !any_bit(acc)) return;
+        and_segment<kVec>(tab[j], seg0, lane, acc);
+      }
+    }
+  }
+}
+
+template <bool kGather, int kVec>
 __global__ void __launch_bounds__(kThreads)
-expand_write_kernel(const uint32_t* __restrict__ rows,
-                    const int32_t* __restrict__ counts,
-                    const int64_t* __restrict__ incl,
-                    int32_t* __restrict__ rid, int32_t* __restrict__ cid,
-                    int f, int w, int n_i, int64_t size) {
+segment_counts_kernel(SegmentArgs a, int32_t* __restrict__ counts) {
+  __shared__ const uint32_t* ptrs[kRowsPerBlock][kMaxK];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int64_t items = static_cast<int64_t>(a.f) * a.nseg;   // < 2^31
+  const int64_t alive = live_rows(a) * a.nseg;
+  const int nwarps = gridDim.x * kRowsPerBlock;
+  const int first = blockIdx.x * kRowsPerBlock + warp;
+  // the item's (row, segment), stepped by nwarps items without a division
+  int row = first / a.nseg, seg = first % a.nseg;
+  const int drow = nwarps / a.nseg, dseg = nwarps % a.nseg;
+  for (int64_t it = first; it < alive; it += nwarps) {   // warp-uniform
+    uint32_t acc[kSegWords];
+    segment_words<kGather, kVec>(a, row, seg * kSegLanes, lane, ptrs[warp],
+                                 acc);
+    row += drow;
+    seg += dseg;
+    if (seg >= a.nseg) {
+      seg -= a.nseg;
+      ++row;
+    }
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < kSegWords; ++j) cnt += __popc(acc[j]);
+    cnt = warp_sum(cnt);
+    if (lane == 0) counts[it] = cnt;
+  }
+  // rows past n_alive count zero
+  for (int64_t i = alive + blockIdx.x * blockDim.x + threadIdx.x; i < items;
+       i += gridDim.x * blockDim.x)
+    counts[i] = 0;
+}
+
+// One step of a segment: the thread's kVec words `w` hold `c` bits, the
+// first at slot `first` of the step, whose first slot in the page is
+// `base`.  The whole warp writes each non-zero word in turn (thread by
+// thread, word by word: row-major order): lane b places bit b at the
+// word's slot plus the bits below it, so a dense word goes out as one
+// contiguous run; slots at or past `size` are not written.
+template <int kVec>
+__device__ __forceinline__ void write_step(const uint32_t (&w)[kVec],
+                                           int c, int first, int s, int seg0,
+                                           int64_t base, int64_t size,
+                                           int lane,
+                                           int32_t* __restrict__ cid) {
+  const uint32_t below = (1u << lane) - 1u;
+  unsigned owners = __ballot_sync(kFull, c > 0);
+  while (owners != 0u) {                      // uniform across the warp
+    const int t = __ffs(owners) - 1;
+    owners &= owners - 1u;
+    uint32_t v[kVec];                         // the owner's words, at once
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = __shfl_sync(kFull, w[i], t);
+    int64_t slot = base + __shfl_sync(kFull, first, t);
+    if (slot >= size) return;                 // uniform across the warp
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int64_t q = slot + __popc(v[i] & below);
+      const int col = 32 * (seg0 + seg_offset<kVec>(s * kVec + i, t)) + lane;
+      if (((v[i] >> lane) & 1u) && q < size) cid[q] = col;
+      slot += __popc(v[i]);
+    }
+  }
+}
+
+template <bool kGather, int kVec>
+__global__ void __launch_bounds__(kThreads)
+segment_write_kernel(SegmentArgs a, const int32_t* __restrict__ counts,
+                     const int64_t* __restrict__ incl,
+                     int32_t* __restrict__ rid, int32_t* __restrict__ cid,
+                     int64_t size) {
+  __shared__ const uint32_t* ptrs[kRowsPerBlock][kMaxK];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int64_t items = static_cast<int64_t>(a.f) * a.nseg;
   // zero fill past the last pair, grid-stride over every thread
-  const int64_t total = incl[f - 1];
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t total = incl[items - 1];
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t p = total + static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       p < size; p += stride) {
+       p < size; p += nthreads) {
     rid[p] = 0;
     cid[p] = 0;
   }
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
-  if (row >= f) return;
-  int64_t base = incl[row] - counts[row];   // this row's first pair slot
-  if (counts[row] == 0 || base >= size) return;
-  const uint32_t* r = rows + row * w;
-  const int live = min(w, (n_i + 31) / 32);
-  for (int t0 = 0; t0 < live; t0 += kWarp) {  // uniform across the warp
-    const int t = t0 + lane;
-    uint32_t v = t < live ? live_bits(r[t], t, n_i) : 0u;
-    const int c = __popc(v);
-    int incl_c = c;                           // inclusive warp prefix sum
+  // a warp's items are gwarp, gwarp + nwarps, ...: 32 of them are looked
+  // up at once (lane j the j-th), and the ones with pairs before `size`
+  // are written one by one, so that a page whose pairs end early still
+  // spreads over every warp
+  const int64_t alive = live_rows(a) * a.nseg;   // items < 2^31
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  for (int64_t g0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+       g0 < alive; g0 += kWarp * nwarps) {       // uniform across the warp
+    const int64_t it = g0 + lane * nwarps;
+    int cnt = 0;
+    int64_t off = 0;
+    if (it < alive) {
+      cnt = counts[it];
+      off = incl[it] - cnt;
+    }
+    // offsets grow with the item, so once this batch starts at or past
+    // `size`, so do all later batches of this warp
+    if (__shfl_sync(kFull, off, 0) >= size) break;
+    unsigned todo = __ballot_sync(kFull, it < alive && cnt > 0 && off < size);
+    while (todo != 0u) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const unsigned item = static_cast<unsigned>(g0 + src * nwarps);
+      const int c_seg = __shfl_sync(kFull, cnt, src);
+      const int64_t o = __shfl_sync(kFull, off, src);
+      const int row = static_cast<int>(item / a.nseg);
+      const int seg0 = static_cast<int>(item % a.nseg) * kSegLanes;
+      uint32_t acc[kSegWords];
+      segment_words<kGather, kVec>(a, row, seg0, lane, ptrs[warp], acc);
+      const int64_t n_out = min64(c_seg, size - o);
+      for (int64_t q = lane; q < n_out; q += kWarp)
+        rid[o + q] = static_cast<int32_t>(row);
+      int64_t base = o;
 #pragma unroll
-    for (int o = 1; o < kWarp; o <<= 1) {
-      const int n = __shfl_up_sync(kFull, incl_c, o);
-      if (lane >= o) incl_c += n;
+      for (int s = 0; s < kSegWords / kVec; ++s) {
+        if (base >= size) continue;             // uniform across the warp
+        uint32_t w[kVec];
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          w[i] = acc[s * kVec + i];
+          c += __popc(w[i]);
+        }
+        int incl_c = c;                         // inclusive warp prefix sum
+#pragma unroll
+        for (int d = 1; d < kWarp; d <<= 1) {
+          const int n = __shfl_up_sync(kFull, incl_c, d);
+          if (lane >= d) incl_c += n;
+        }
+        const int step_total = __shfl_sync(kFull, incl_c, kWarp - 1);
+        if (step_total > 0)
+          write_step<kVec>(w, c, incl_c - c, s, seg0, base, size, lane, cid);
+        base += step_total;
+      }
     }
-    int64_t pos = base + incl_c - c;
-    while (v != 0u && pos < size) {
-      const int b = __ffs(v) - 1;
-      v &= v - 1u;
-      rid[pos] = static_cast<int32_t>(row);
-      cid[pos] = 32 * t + b;
-      ++pos;
-    }
-    base += __shfl_sync(kFull, incl_c, kWarp - 1);
-    if (base >= size) break;
   }
 }
 
 inline unsigned blocks_for(int64_t rows) {
   return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+// SMs x the blocks of `kernel` an SM holds: a persistent grid
+template <typename Kernel>
+int occupancy_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return std::max(1, sms * per_sm);
+}
+
+template <bool kGather, int kVec>
+void launch_counts(const SegmentArgs& a, int32_t* counts, cudaStream_t st) {
+  static const int cap = occupancy_blocks(segment_counts_kernel<kGather, kVec>);
+  const int64_t want =
+      (static_cast<int64_t>(a.f) * a.nseg + kRowsPerBlock - 1) / kRowsPerBlock;
+  const unsigned blocks = static_cast<unsigned>(
+      std::max<int64_t>(1, std::min<int64_t>(want, cap)));
+  segment_counts_kernel<kGather, kVec><<<blocks, kThreads, 0, st>>>(a, counts);
+}
+
+template <bool kGather, int kVec>
+void launch_write(const SegmentArgs& a, const int32_t* counts,
+                  const int64_t* incl, int32_t* rid, int32_t* cid,
+                  int64_t size, cudaStream_t st) {
+  static const int cap = occupancy_blocks(segment_write_kernel<kGather, kVec>);
+  segment_write_kernel<kGather, kVec><<<cap, kThreads, 0, st>>>(
+      a, counts, incl, rid, cid, size);
+}
+
+// The launchers' arguments as one struct; nullptr where a mode has none.
+SegmentArgs segment_args(const void* rows, const void* fb, const void* idx,
+                         const void* n_alive, int64_t w_all, int f, int k,
+                         int live, int n_i, int nseg) {
+  return SegmentArgs{static_cast<const uint32_t*>(rows),
+                     static_cast<const uint32_t*>(fb),
+                     static_cast<const int32_t*>(idx),
+                     static_cast<const int64_t*>(n_alive),
+                     w_all, f, k, live, n_i, nseg};
+}
+
+// 16-byte loads need every row (and fb_row) on a 16-byte boundary
+bool lanes16(const SegmentArgs& a, bool gather) {
+  auto at16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return a.w_all % 4 == 0 && at16(a.rows) && (!gather || at16(a.fb));
 }
 
 }  // namespace
@@ -226,23 +503,54 @@ int rt_intersect(const void* rows, void* and_rows, void* counts, int f, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_row_counts(const void* rows, void* counts, int f, int w, int n_i,
-                  void* stream) {
-  row_counts_kernel<<<blocks_for(f), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(counts), f, w,
-      n_i);
+// lanes per segment: the caller sizes the counts (F * nseg) with it
+int rt_segment_lanes() { return kSegLanes; }
+
+int rt_segment_counts(const void* rows, const void* fb, const void* idx,
+                      const void* n_alive, void* counts, int64_t w_all,
+                      int f, int k, int live, int n_i, int nseg, int gather,
+                      void* stream) {
+  if (nseg != (live + kSegLanes - 1) / kSegLanes ||
+      static_cast<int64_t>(f) * nseg >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentArgs a = segment_args(rows, fb, idx, n_alive, w_all, f, k,
+                                     live, n_i, nseg);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* out = static_cast<int32_t*>(counts);
+  const bool vec4 = lanes16(a, gather != 0);
+  if (gather) {
+    if (vec4) launch_counts<true, 4>(a, out, st);
+    else launch_counts<true, 1>(a, out, st);
+  } else {
+    if (vec4) launch_counts<false, 4>(a, out, st);
+    else launch_counts<false, 1>(a, out, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_expand_write(const void* rows, const void* counts, const void* incl,
-                    void* rid, void* cid, int f, int w, int n_i, int64_t size,
-                    void* stream) {
-  expand_write_kernel<<<blocks_for(f), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(counts),
-      static_cast<const int64_t*>(incl), static_cast<int32_t*>(rid),
-      static_cast<int32_t*>(cid), f, w, n_i, size);
+int rt_segment_write(const void* rows, const void* fb, const void* idx,
+                     const void* n_alive, const void* counts,
+                     const void* incl, void* rid, void* cid, int64_t w_all,
+                     int f, int k, int live, int n_i, int nseg, int64_t size,
+                     int gather, void* stream) {
+  if (nseg != (live + kSegLanes - 1) / kSegLanes ||
+      static_cast<int64_t>(f) * nseg >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentArgs a = segment_args(rows, fb, idx, n_alive, w_all, f, k,
+                                     live, n_i, nseg);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* c = static_cast<const int32_t*>(counts);
+  const int64_t* s = static_cast<const int64_t*>(incl);
+  int32_t* r = static_cast<int32_t*>(rid);
+  int32_t* o = static_cast<int32_t*>(cid);
+  const bool vec4 = lanes16(a, gather != 0);
+  if (gather) {
+    if (vec4) launch_write<true, 4>(a, c, s, r, o, size, st);
+    else launch_write<true, 1>(a, c, s, r, o, size, st);
+  } else {
+    if (vec4) launch_write<false, 4>(a, c, s, r, o, size, st);
+    else launch_write<false, 1>(a, c, s, r, o, size, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,7 @@ card.  All lanes are int32 tensors holding the packed uint32 bits (see
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -156,3 +156,43 @@ def expand_pairs_ref(and_rows: torch.Tensor, *, n_i: int, size: int
         cid[got:got + k] = (flat % n_i).to(torch.int32)
         got += k
     return rid, cid
+
+
+def gather_level_ref(mats: torch.Tensor, fb_row: torch.Tensor,
+                     idx: torch.Tensor, n_alive: torch.Tensor, *,
+                     n_i: int) -> torch.Tensor:
+    """The whole-graph enumerator's level rows: int32 lanes (F, W), row f
+    ``fb_row & AND_k mats[idx[f, k]]`` for ``f < n_alive``, zero past it
+    and at columns ``>= n_i`` (see :func:`gather_expand_ref`)."""
+    f, k = idx.shape
+    w = mats.shape[1]
+    cand = fb_row.expand(f, w).clone()
+    for j in range(k):
+        cand &= mats[idx[:, j].long()]
+    alive = torch.arange(f, device=mats.device) < n_alive
+    cand = torch.where(alive[:, None], cand, 0)
+    live = min(w, (n_i + 31) // 32)
+    cand[:, live:] = 0
+    if n_i < 32 * live:                 # bits at n_i and above never count
+        cand[:, live - 1] &= (1 << (n_i - 32 * (live - 1))) - 1
+    return cand
+
+
+def gather_expand_ref(mats: torch.Tensor, fb_row: torch.Tensor,
+                      idx: torch.Tensor, n_alive: torch.Tensor, *, n_i: int,
+                      size: int, expand: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """One level of the whole-graph enumerator: the candidate row
+    ``fb_row`` (int32 lanes (W,)) ANDed, for each frontier row f below
+    ``n_alive`` (an int64 0-d tensor), with the rows ``mats[idx[f, k]]``
+    (mats int32 lanes (R, W), idx int32 (F, Kc), Kc >= 0) -> (total: the
+    int64 0-d count of those rows' set bits below column ``n_i``; with
+    ``expand``, their first ``size`` ``(row, column)`` pairs as
+    :func:`expand_pairs_ref` gives them, else None and None)."""
+    cand = gather_level_ref(mats, fb_row, idx, n_alive, n_i=n_i)
+    total = packed.popcount(cand).sum(dtype=torch.int64)
+    if not expand:
+        return total, None, None
+    rid, cid = expand_pairs_ref(cand, n_i=n_i, size=size)
+    return total, rid, cid

@@ -13,11 +13,14 @@ host re-run.
 The search order is known on the host, so the Python loop over levels
 applies to each level only the edges that constrain it and stops after
 the query's last node (the JAX package masks the remaining levels out).
-Frontier expansion — the first ``capacity`` set bits of the candidate
-rows in row-major order — runs on the card through the ``expand_pairs``
-kernel, which neither syncs with the host nor materialises the unpacked
-``(capacity, n_pad)`` bits.  Rows of the frontier that are not alive are
-unspecified.
+A level — each live row's candidate row ANDed with one gathered row per
+constraining edge, its count, and the expansion into the first
+``capacity`` set bits in row-major order — is one ``gather_expand``
+call: on the card a fused kernel that reads only the live rows' gathered
+rows, never writes the AND rows, and never syncs with the host.  The
+live rows are always a prefix of the frontier (``alive = slots <
+level_total``), so a level passes their number, ``n_alive``, as a device
+scalar.  Rows of the frontier that are not alive are unspecified.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..kernels import packed
-from ..kernels.gather_intersect import expand_pairs
+from ..kernels.gather_intersect import gather_expand
 from .device_graph import DeviceGraph, stacked_matrices
 from .encoding import PAD, QueryTensor
 
@@ -80,6 +83,8 @@ def mjoin_count(dg: DeviceGraph, qt: QueryTensor, fb: torch.Tensor,
                         device=dev)
     alive = torch.zeros(capacity, dtype=torch.bool, device=dev)
     alive[0] = True
+    # live frontier rows: always the prefix `alive` marks
+    n_alive = torch.ones((), dtype=torch.int64, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     slots = torch.arange(capacity, device=dev)
@@ -87,7 +92,7 @@ def mjoin_count(dg: DeviceGraph, qt: QueryTensor, fb: torch.Tensor,
     for i in range(n_nodes):
         qi = int(np.clip(order[i], 0, max_q - 1))
         is_last = i == n_nodes - 1
-        cand = fb_words[qi].expand(capacity, w).clone()
+        cols = []                           # rows of mats_flat, per edge
         for e in range(qt.max_e):
             if kind[e] < 0:
                 continue
@@ -99,23 +104,26 @@ def mjoin_count(dg: DeviceGraph, qt: QueryTensor, fb: torch.Tensor,
                 continue
             jpos = psrc if f_app else pdst
             mat_id = (0 if f_app else 2) + int(np.clip(kind[e], 0, 1))
-            t_col = assign[:, int(np.clip(jpos, 0, max_q - 1))].long()
-            rows = mats_flat[mat_id * np_ + t_col.clamp(0, np_ - 1)]
-            cand &= rows
-        cand = torch.where(alive[:, None], cand, 0)
-        level_total = packed.popcount(cand).sum(dtype=torch.int64)
+            t_col = assign[:, int(np.clip(jpos, 0, max_q - 1))]
+            cols.append(t_col.clamp(0, np_ - 1) + mat_id * np_)
+        idx = (torch.stack(cols, dim=1) if cols else
+               torch.empty((capacity, 0), dtype=torch.int32, device=dev))
+        expand = not is_last or materialize
+        # count, and expand: the first `capacity` set bits in row-major order
+        level_total, parent, node = gather_expand(
+            mats_flat, fb_words[qi], idx, n_alive, n_i=np_, size=capacity,
+            expand=expand)
         if is_last:
             total = total + level_total
         else:
             overflow = overflow | (level_total > capacity)
-        if is_last and not materialize:
+        if not expand:
             break
-        # expand: the first `capacity` set bits in row-major order
-        parent, node = expand_pairs(cand, n_i=np_, size=capacity)
         valid_new = slots < level_total
         assign = assign[parent.long()]
         assign[:, i] = torch.where(valid_new, node, PAD)
         alive = valid_new
+        n_alive = level_total.clamp(max=capacity)
 
     return MJoinCount(count=total, overflowed=overflow, frontier=assign,
                       alive=alive)

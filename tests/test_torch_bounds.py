@@ -126,3 +126,29 @@ def test_closure_step_bound_counts_the_list_work(smoke, case):
     nbytes, ops = smoke.bound("closure_step", (r,), {})
     assert nbytes == 2 * 4 * n * w
     assert ops == want
+
+
+@pytest.mark.parametrize("n_alive,expand", [(65_536, True), (100, True),
+                                            (65_536, False), (0, True)])
+def test_gather_expand_bound_counts_the_live_rows(smoke, n_alive, expand):
+    """The enumerator's level at the serve shape (the stack's flat view,
+    meta): each distinct row the live rows gather read once over the live
+    lanes, their index, the candidate row and, when expanding, the pairs;
+    one operation per gathered lane.  Rows past n_alive cost nothing."""
+    mats = torch.empty((4 * N_PAD, W), dtype=torch.int32, device="meta")
+    fb_row = torch.empty((W,), dtype=torch.int32, device="meta")
+    f, k, size = 65_536, 2, 65_536
+    # live row f gathers rows f % 50 and 1,000 + f % 7: 57 distinct rows
+    rows = torch.arange(f, dtype=torch.int32)
+    idx = torch.stack([rows % 50, 1_000 + rows % 7], dim=1)
+    alive = torch.tensor(n_alive)
+    kw = {"n_i": N_PAD, "size": size, "expand": expand}
+    least, by, nbytes, ops = smoke.bound_ms(
+        "gather_expand", (mats, fb_row, idx, alive), kw)
+    distinct = 57 if n_alive >= 50 else 0
+    pairs = 2 * size if expand else 0
+    assert nbytes == 4 * (distinct * W + n_alive * k + pairs + W)
+    assert ops == n_alive * W * (k + 1)
+    assert least == max(nbytes / 3.35e12, ops / 67e12) * 1e3
+    assert by == ("bytes" if nbytes / 3.35e12 >= ops / 67e12 else
+                  "operations")

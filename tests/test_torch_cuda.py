@@ -12,7 +12,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.convert import graph_from_arrays, query_from_spec  # noqa: E402
 from repro_torch.core import GM, GMOptions  # noqa: E402
+from repro_torch.core import bitset  # noqa: E402
 from repro_torch.core.reachability import ReachabilityIndex  # noqa: E402
 from repro_torch.data.graphs import random_labeled_graph  # noqa: E402
 from repro_torch.data.queries import random_query_from_graph  # noqa: E402
@@ -21,7 +23,9 @@ from repro_torch.kernels import ops, packed  # noqa: E402
 from repro_torch.kernels.bitmm import bitmm  # noqa: E402
 from repro_torch.kernels.closure import (LIST_CAP, closure_step,  # noqa: E402
                                         row_lists, transpose)
+from repro_torch.kernels import gather_intersect as gi  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
+                                                  gather_expand,
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
 from repro_torch.obs.ledger import LEDGER  # noqa: E402
@@ -73,11 +77,150 @@ def test_intersect_kernel_equals_plain(cuda, f, k, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("f,w,n_i,size", [(6, 4, 70, 37), (6, 4, 70, 1024),
                                           (500, 8, 250, 65536),
-                                          (1, 2, 33, 5)])
+                                          (1, 2, 33, 5), (1024, 832, 26_575,
+                                                          1_013_760)])
 def test_expand_pairs_kernel_equals_plain(cuda, f, w, n_i, size):
     rows = _lanes(np.random.default_rng(n_i), f, w).to(cuda)
     assert _equal(expand_pairs(rows, n_i=n_i, size=size),
                   ref.expand_pairs_ref(rows, n_i=n_i, size=size))
+
+
+# (rows, lanes, n_i, size, fill, offset): segments of 256 lanes; W % 4 != 0
+# (4-byte loads), n_i off a multiple of 32, `size` cut inside a segment,
+# `size` past the total (zero fill), a single wide row, all-ones rows, and
+# an input one lane off a 16-byte boundary
+EXPAND_SEGMENT_CASES = {
+    "w_mod4": (300, 130, 32 * 130, 1 << 16, "random", 0),
+    "n_i_ragged": (64, 600, 600 * 32 - 17, 1 << 18, "random", 0),
+    "cut_in_segment": (40, 1024, 32 * 1024, 12_345, "random", 0),
+    "zero_fill": (7, 520, 16_600, 1 << 17, "sparse", 0),
+    "one_wide_row": (1, 2384, 76_288, 65_536, "random", 0),
+    "all_ones": (33, 300, 9_580, 200_000, "ones", 0),
+    "all_ones_cut": (33, 300, 9_580, 77_777, "ones", 0),
+    "misaligned": (50, 260, 8_300, 1 << 16, "random", 1),
+}
+
+
+def _expand_rows(rng, f, w, fill, offset, device):
+    if fill == "ones":
+        rows = torch.full((f * w + offset,), -1, dtype=torch.int32)
+    else:
+        rows = _lanes(rng, f * w + offset)
+        if fill == "sparse":
+            rows = torch.where(torch.from_numpy(rng.random(f * w + offset)
+                                                < 0.01), rows, 0)
+    return rows.to(device)[offset:].view(f, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EXPAND_SEGMENT_CASES))
+def test_expand_pairs_kernel_segments(cuda, case):
+    f, w, n_i, size, fill, offset = EXPAND_SEGMENT_CASES[case]
+    rows = _expand_rows(np.random.default_rng(f + w), f, w, fill, offset,
+                        cuda)
+    assert _equal(expand_pairs(rows, n_i=n_i, size=size),
+                  ref.expand_pairs_ref(rows, n_i=n_i, size=size))
+
+
+# (rows F, Kc, n_alive, lanes W, n_i, size, expand, fill, offset): Kc 0,
+# 1, 3 and past the 32 row pointers a warp resolves at once; n_alive 0,
+# 1, partial, all and past F; W % 4 != 0; `size` cut inside a segment and
+# past the total; all-ones rows; mats one lane off a 16-byte boundary
+GATHER_EXPAND_CASES = {
+    "kc0_first_level": (1024, 0, 1, 2384, 76_288, 65_536, True, "random", 0),
+    "kc1_partial": (1024, 1, 700, 132, 4_200, 5_000, True, "random", 0),
+    "kc3_all_alive": (512, 3, 512, 130, 4_160, 1 << 16, True, "random", 0),
+    "kc40_pointer_chunks": (96, 40, 60, 64, 2_048, 4_096, True, "ones", 0),
+    "none_alive": (256, 2, 0, 132, 4_224, 1_000, True, "random", 0),
+    "alive_past_rows": (256, 2, 900, 132, 4_224, 1 << 15, True, "random", 0),
+    "count_only": (2048, 2, 1500, 520, 16_640, 0, False, "random", 0),
+    "ones_cut": (300, 2, 250, 36, 1_100, 100_003, True, "ones", 0),
+    "ones_zero_fill": (300, 1, 20, 36, 1_100, 1 << 16, True, "ones", 0),
+    "misaligned": (400, 2, 333, 260, 8_300, 1 << 14, True, "random", 1),
+    "size_zero": (64, 1, 64, 132, 4_224, 0, True, "random", 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_EXPAND_CASES))
+def test_gather_expand_kernel_equals_plain(cuda, case):
+    f, k, n_alive, w, n_i, size, expand, fill, offset = \
+        GATHER_EXPAND_CASES[case]
+    rng = np.random.default_rng(f + k + w)
+    r = 300
+    if fill == "ones":
+        mats = torch.full((r * w + offset,), -1, dtype=torch.int32)
+        fb = torch.full((w,), -1, dtype=torch.int32)
+    else:
+        # rows of density ~ 0.8 per bit keep a few bits after three ANDs
+        mats = _lanes(rng, r * w + offset) | _lanes(rng, r * w + offset)
+        fb = _lanes(rng, w) | _lanes(rng, w)
+    mats = mats.to(cuda)[offset:].view(r, w)
+    fb = fb.to(cuda)
+    idx = torch.from_numpy(rng.integers(0, r, size=(f, k)).astype(
+        np.int32)).to(cuda)
+    alive = torch.tensor(n_alive, dtype=torch.int64, device=cuda)
+    reset_launch_counts()
+    got = gather_expand(mats, fb, idx, alive, n_i=n_i, size=size,
+                        expand=expand)
+    assert launch_counts() == {"gather_expand": 1}
+    want = ref.gather_expand_ref(mats, fb, idx, alive, n_i=n_i, size=size,
+                                 expand=expand)
+    assert got[0].dtype == torch.int64 and got[0].dim() == 0
+    assert int(got[0]) == int(want[0])
+    if expand:
+        assert _equal(got[1:], want[1:])
+    else:
+        assert got[1:] == (None, None) == want[1:]
+
+
+@pytest.mark.cuda
+def test_torchgm_on_card_calls_no_plain_version(cuda, monkeypatch):
+    """The whole-graph matcher's levels go through the kernels alone."""
+    g = random_labeled_graph(400, avg_degree=3.0, n_labels=3, seed=6)
+    qs = [random_query_from_graph(g, 4, qtype=t, seed=s)
+          for t, s in (("C", 1), ("D", 2))]
+    want = [GM(g).match(q, GMOptions(enum_method="frontier", limit=None,
+                                     materialize=False)).count for q in qs]
+    gm = TorchGM(g, block=128, capacity=1 << 16, exact_sim=True)
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain version ran on the card")
+    for module, name in ((gi, "gather_expand_ref"), (gi, "expand_pairs_ref"),
+                         (gi, "gather_intersect_ref"), (packed, "popcount"),
+                         (ref, "gather_expand_ref"),
+                         (ref, "expand_pairs_ref")):
+        monkeypatch.setattr(module, name, refuse)
+    reset_launch_counts()
+    got = [gm.match(q) for q in qs] + gm.match_batch(qs)
+    assert [r.count for r in got] == want + want
+    assert not any(r.overflowed for r in got)
+    counts = launch_counts()
+    assert counts.get("gather_expand", 0) >= 6
+    assert "expand_pairs" not in counts
+
+
+def _cycle(n):
+    nodes = np.arange(n)
+    return graph_from_arrays(n, np.zeros(n, dtype=np.int32), 1,
+                             np.stack([nodes, (nodes + 1) % n], axis=1))
+
+
+@pytest.mark.cuda
+def test_whole_graph_count_past_int32(cuda):
+    """A directed cycle of 46,341 nodes, one label: every node reaches
+    every node, so the 2-node `//` query has n^2 = 2,147,488,281 >= 2^31
+    occurrences, which the count must hold exactly (in int64) and equal
+    the host reachability index's row sizes summed."""
+    n = 46_341
+    g = _cycle(n)
+    want = int(bitset.count_rows(g.reachability().reach_bits).sum())
+    assert want == n * n > 2 ** 31
+    gm = TorchGM(g, capacity=65_536, exact_sim=True)
+    reset_launch_counts()
+    got = gm.match(query_from_spec([0, 0], [(0, 1, 1)]))
+    assert (got.count, got.overflowed) == (want, False)
+    assert launch_counts().get("gather_expand", 0) == 2
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@ and enumeration are also held apart from the repack: the port's stages run
 on a device graph carried across from the JAX one.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.graph import DataGraph as JDataGraph  # noqa: E402
 from repro.core.query import PatternQuery, QueryEdge  # noqa: E402
 from repro.data.graphs import random_labeled_graph  # noqa: E402
 from repro.data.queries import random_query_from_graph  # noqa: E402
@@ -31,6 +34,7 @@ from repro.jaxgm import simulation as jsim  # noqa: E402
 from repro.obs.ledger import LEDGER as J_LEDGER  # noqa: E402
 from repro_torch.convert import (device_graph_from_packed,  # noqa: E402
                                  graph_from_arrays, query_from_spec)
+from repro_torch.core import bitset  # noqa: E402
 from repro_torch.obs.ledger import LEDGER as P_LEDGER  # noqa: E402
 from repro_torch.torchgm import TorchGM  # noqa: E402
 from repro_torch.torchgm import device_graph as pdgm  # noqa: E402
@@ -254,6 +258,63 @@ def test_mjoin_count_equal(case, capacity, materialize):
                 jenum.decode_tuples(want, order, jq.n))
     if capacity == 8:
         assert overflowed        # the tiny capacity exercises the flag
+
+
+def test_alive_is_the_prefix_gather_expand_is_given(case, monkeypatch):
+    """``n_alive`` rests on the live frontier rows being a prefix: after
+    every level of the JAX reference the alive rows are the first
+    min(level total, capacity) slots, and the port hands ``gather_expand``
+    exactly that number (1 at the first level)."""
+    _, jdg, pdg, jqs, pqs = case
+    capacity = 8                 # small, so that levels are cut
+    seen = []
+    level = penum.gather_expand
+
+    def recording(mats, fb_row, idx, n_alive, **kw):
+        seen.append(int(n_alive))
+        return level(mats, fb_row, idx, n_alive, **kw)
+    monkeypatch.setattr(penum, "gather_expand", recording)
+    cut = 0
+    for jq, pq in zip(jqs, pqs):
+        jqt, pqt = _qts(jq, pq)
+        jfb = jsim.double_simulation(jdg, jqt, exact=True, impl="reference")
+        order = jenc.jo_order(jqt, jsim.fb_sizes(jfb))
+        seen.clear()
+        penum.mjoin_count(pdg, pqt, torch.from_numpy(np.array(jfb)),
+                          torch.from_numpy(np.array(order)),
+                          capacity=capacity, materialize=True)
+        assert len(seen) == pq.n and seen[0] == 1
+        for n_levels in range(1, pq.n):
+            # the reference run through its first n_levels levels only
+            want = jenum.mjoin_count(
+                jdg, dataclasses.replace(jqt, n_nodes=jnp.int32(n_levels)),
+                jfb, order, capacity=capacity, materialize=True)
+            alive = np.asarray(want.alive)
+            n = int(alive.sum())
+            assert np.array_equal(alive, np.arange(capacity) < n)
+            assert seen[n_levels] == n
+            cut += n == capacity
+    assert cut                   # some level filled the frontier
+
+
+def test_torchgm_counts_every_pair_of_a_cycle():
+    """Every node of a directed cycle reaches every node (itself too): the
+    2-node ``//`` query counts n^2, the host reachability index's row
+    sizes summed, as JaxGM does at a size where its int32 count holds."""
+    n = 300
+    nodes = np.arange(n)
+    jg = JDataGraph(n=n, labels=np.zeros(n, dtype=np.int32), num_labels=1,
+                    edges=np.stack([nodes, (nodes + 1) % n], axis=1))
+    jq = PatternQuery(labels=[0, 0], edges=[QueryEdge(0, 1, 1)])
+    pg = _port_graph(jg)
+    want = int(bitset.count_rows(pg.reachability().reach_bits).sum())
+    tgm = TorchGM(pg, block=BLOCK, capacity=CAPACITY, exact_sim=True)
+    got = tgm.match(_port_query(jq))
+    jwant = JaxGM(jg, block=BLOCK, capacity=CAPACITY, exact_sim=True,
+                  impl="reference").match(jq)
+    assert want == n * n
+    assert (got.count, got.overflowed) == (want, False)
+    assert (int(jwant.count), bool(jwant.overflowed)) == (want, False)
 
 
 # ------------------------------------------------------------------ TorchGM

@@ -27,6 +27,7 @@ from repro_torch.kernels import ops, packed  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
 from repro_torch.kernels.bitmm import b_operand, bitmm  # noqa: E402
 from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
+                                                  gather_expand,
                                                   gather_intersect)
 from repro_torch.kernels.intersect import intersect  # noqa: E402
 
@@ -173,6 +174,107 @@ def test_expand_pairs_chunked_plain_version_matches_jax(monkeypatch):
             jr, jc = j_expand(jnp.asarray(rows32), n_i=n_i, size=size)
             assert np.array_equal(rid.numpy(), np.asarray(jr))
             assert np.array_equal(cid.numpy(), np.asarray(jc))
+
+
+# ----------------------------------------------------------- gather_expand
+# (F, rows of mats, W, Kc, n_alive, n_i, size, fill): Kc 0 (the first
+# level, and a disconnected node's), 1, 2, 3 and 40; n_alive 0, 1,
+# partial, all; a cut inside a row and a page past the total; a ragged
+# n_i with random bits above it; all-ones rows for a long AND
+GATHER_EXPAND_CASES = {
+    "kc0_first_level": (1, 30, 8, 0, 1, 256, 300, "random"),
+    "kc0_all_alive": (40, 30, 8, 0, 40, 256, 5000, "random"),
+    "none_alive": (40, 30, 8, 3, 0, 256, 64, "random"),
+    "one_alive": (40, 30, 8, 2, 1, 256, 64, "random"),
+    "partial_cut_in_row": (40, 30, 8, 2, 17, 256, 250, "random"),
+    "all_alive_zero_fill": (40, 30, 8, 2, 40, 256, 10_000, "random"),
+    "ragged_n_i": (40, 30, 6, 1, 25, 180, 100, "random"),
+    "kc40": (64, 50, 4, 40, 50, 128, 333, "ones"),
+}
+
+
+def _level_case(name):
+    f, r, w, k, n_alive, n_i, size, fill = GATHER_EXPAND_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if fill == "ones":
+        mats = np.full((r, w), 0xFFFFFFFF, dtype=np.uint32)
+        mats[::7] = rand_words(rng, len(mats[::7]), w)
+    else:
+        mats = rand_words(rng, r, w) | rand_words(rng, r, w)
+    fb = rand_words(rng, w) | rand_words(rng, w)
+    idx = rng.integers(0, r, size=(f, k)).astype(np.int32)
+    return mats, fb, idx, n_alive, n_i, size
+
+
+def _jax_level(mats, fb, idx, n_alive, n_i, size):
+    """The JAX package's gather_intersect_xla + expand_pairs on a matrix
+    of mats, fb_row and a zero row: live rows gather fb_row and their
+    rows, dead rows the zero row.  -> (total below n_i, rid, cid)."""
+    r, w = mats.shape
+    f, k = idx.shape
+    matrix = np.concatenate([mats, fb[None], np.zeros((1, w), np.uint32)])
+    jidx = np.full((f, k + 1), r + 1, dtype=np.int32)
+    jidx[:n_alive, 0] = r
+    jidx[:n_alive, 1:] = idx[:n_alive]
+    rows, _ = gather_intersect_xla(jnp.asarray(matrix), jnp.asarray(jidx),
+                                   w32=w)
+    total = int(np.unpackbits(words(rows).view(np.uint8), axis=1,
+                              bitorder="little")[:, :n_i].sum())
+    rid, cid = j_expand(rows, n_i=n_i, size=size)
+    return total, np.asarray(rid), np.asarray(cid)
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_EXPAND_CASES))
+def test_gather_expand_matches_jax(name):
+    mats, fb, idx, n_alive, n_i, size = _level_case(name)
+    want_total, want_rid, want_cid = _jax_level(mats, fb, idx, n_alive,
+                                                n_i, size)
+    alive = torch.tensor(n_alive, dtype=torch.int64)
+    args = (lanes(mats), lanes(fb), torch.from_numpy(idx), alive)
+    for fn in (gather_expand, pref.gather_expand_ref):
+        total, rid, cid = fn(*args, n_i=n_i, size=size)
+        assert total.dtype == torch.int64 and total.dim() == 0
+        assert int(total) == want_total
+        assert rid.dtype == cid.dtype == torch.int32
+        assert np.array_equal(rid.numpy(), want_rid)
+        assert np.array_equal(cid.numpy(), want_cid)
+        assert fn(*args, n_i=n_i, size=size, expand=False) == \
+            (total, None, None)
+    if name == "partial_cut_in_row":      # the cut falls inside a row
+        assert 0 < want_rid[-1] < n_alive and want_total > size
+        assert want_rid[-1] == want_rid[-2]
+
+
+def test_gather_expand_level_rows_equal_expand_pairs_input():
+    """The plain level's AND rows, expanded by expand_pairs, give the
+    level's pairs: the two kernels meet at the same page."""
+    mats, fb, idx, n_alive, n_i, size = _level_case("ragged_n_i")
+    args = (lanes(mats), lanes(fb), torch.from_numpy(idx),
+            torch.tensor(n_alive))
+    rows = pref.gather_level_ref(*args, n_i=n_i)
+    assert not rows[n_alive:].any()
+    _, rid, cid = gather_expand(*args, n_i=n_i, size=size)
+    got = expand_pairs(rows, n_i=n_i, size=size)
+    assert torch.equal(got[0], rid) and torch.equal(got[1], cid)
+
+
+def test_gather_expand_rejects_bad_arguments():
+    m = torch.zeros((4, 8), dtype=torch.int32)
+    fb = torch.zeros((8,), dtype=torch.int32)
+    idx = torch.zeros((3, 1), dtype=torch.int32)
+    alive = torch.tensor(3)
+    with pytest.raises(ValueError):
+        gather_expand(m, fb[:4], idx, alive, n_i=256, size=4)
+    with pytest.raises(TypeError):
+        gather_expand(m, fb, idx, 3, n_i=256, size=4)
+    with pytest.raises(ValueError):
+        gather_expand(m, fb, idx, alive.to(torch.int32), n_i=256, size=4)
+    with pytest.raises(ValueError):
+        gather_expand(m, fb, idx, alive, n_i=257, size=4)
+    with pytest.raises(ValueError):
+        gather_expand(m, fb, idx, alive, n_i=256, size=-1)
+    with pytest.raises(TypeError):
+        gather_expand(m, fb, idx.long(), alive, n_i=256, size=4)
 
 
 # ------------------------------------------------------------------- bitmm
