@@ -71,24 +71,35 @@
    ``torch.nonzero_static`` of the page's bits, unpacked beforehand and
    not timed, at both shapes; none for ``transpose``, ``gather_expand``,
    ``gather_intersect`` and ``intersect``).  ``bitmm`` is also timed at B = 32 (the batch of 4)
-   and its CUDA-core floor printed.  Bounds: bytes over 3.35 TB/s
-   against operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor
-   cores) and over 67 T/s for the others.
+   and its CUDA-core floor printed.  ``gather_intersect`` and
+   ``intersect`` are also held to their plain versions and timed cold at
+   every launch shape the ``GM.match`` and serve paths gave them (the
+   shape histogram, with each shape's launches and the cold ms summed over
+   them), beside the launch floor (an empty kernel in the same harness)
+   and a plain copy of the same bytes (``index_select`` of the gathered
+   rows cut to ``w32``; a copy of the slab's output bytes).  Bounds: bytes
+   over 3.35 TB/s against operations over 1,979 TOP/s for ``bitmm`` (the
+   int8 tensor cores) and over 67 T/s for the others.
 8. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises and exits non-zero.  Without CUDA, or without the
-repository's ``src/repro_torch`` beside it, it exits 2 and prints no result.
+Any failed phase raises and exits non-zero, as does a spill that ptxas
+reports in any instantiation of ``gather_intersect_kernel`` or
+``intersect_kernel`` (checked after the ``kernels`` line is printed).
+Without CUDA, or without the repository's ``src/repro_torch`` beside it,
+it exits 2 and prints no result.
 It imports nothing of JAX and nothing of the reference package.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -165,6 +176,28 @@ def kernel_name(line: str) -> str:
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
+# the kernels whose every instantiation must compile without a spill
+NO_SPILL = ("gather_intersect_kernel", "intersect_kernel")
+
+
+def ptxas_spills(build, source: str = "frontier_kernels"):
+    """{kernel<template args>: (spill store bytes, spill load bytes)} of
+    every instantiation of ``NO_SPILL`` in ptxas's report of ``source``,
+    the one kept beside its library."""
+    report, kernel = {}, None
+    for line in build.report(source).splitlines():
+        if "entry function" in line or "Function properties" in line:
+            kernel = kernel_name(line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel and kernel.split("<")[0] in NO_SPILL:
+            report[kernel] = (int(m.group(1)), int(m.group(2)))
+    if not report:
+        raise AssertionError(f"ptxas reported nothing of {NO_SPILL} in "
+                             f"{source}")
+    return report
+
+
 # ----------------------------------------------------------------- timing
 def time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     for _ in range(warmup):
@@ -180,9 +213,9 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def replay_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
-    """Device time per call: ``iters`` calls captured into one CUDA graph,
-    replayed ``replays`` times, so host-side wrapper overhead drops out."""
+def graph_of(torch, fn, iters: int):
+    """``iters`` calls of ``fn`` captured into one CUDA graph (warmed up
+    off the capture), replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):           # warm up off the capture
@@ -195,6 +228,11 @@ def replay_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replays_ms(torch, graph, replays: int) -> float:
+    """Device ms of ``replays`` replays of ``graph`` (CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -202,18 +240,31 @@ def replay_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
+    return start.elapsed_time(end)
 
 
-def cold_ms(torch, fn, flush, iters: int = 20) -> float:
+def replay_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured into one CUDA graph,
+    replayed ``replays`` times, so host-side wrapper overhead drops out."""
+    return replays_ms(torch, graph_of(torch, fn, iters), replays) / (
+        iters * replays)
+
+
+def cold_ms(torch, fn, flush, iters: int = 20, rounds: int = 5) -> float:
     """Device time per call with a cold L2: each call follows a write of
     ``flush`` (larger than L2) in the graph; the flushes alone are timed
-    the same way and subtracted."""
+    the same way and subtracted.  The two graphs are replayed in turn
+    ``rounds`` times and the median difference kept: the flushes take a
+    hundred times longer than a small kernel, so a clock that moves
+    between two lone timings would swamp it."""
     def flushed():
         flush.zero_()
         fn()
-    return (replay_ms(torch, flushed, iters=iters, replays=10)
-            - replay_ms(torch, flush.zero_, iters=iters, replays=10))
+    with_fn = graph_of(torch, flushed, iters)
+    alone = graph_of(torch, flush.zero_, iters)
+    diffs = [replays_ms(torch, with_fn, 10) - replays_ms(torch, alone, 10)
+             for _ in range(rounds)]
+    return statistics.median(diffs) / (iters * 10)
 
 
 def set_bits(words) -> int:
@@ -244,11 +295,14 @@ class Capture:
     through one module's name for it on the main paths, or with no size
     every input, of which :meth:`keep_largest` picks one after the path
     (the wrapper itself, and its launch count, are untouched); ``on``
-    pauses it."""
+    pauses it.  For the keys of ``HISTOGRAM`` it also keeps every distinct
+    launch shape with the number of its launches and its first input
+    (``shapes[key][shape] = [launches, args, kw]``)."""
 
     def __init__(self, specs):
         self.inputs = {}
         self.every = {}
+        self.shapes = {}
         self.on = True
         for module, name, key, size in specs:
             setattr(module, name, self._wrap(key, getattr(module, name),
@@ -264,8 +318,17 @@ class Capture:
         return s
 
     def _wrap(self, key, fn, size):
+        shape = HISTOGRAM.get(key)
+
         def wrapped(*args, **kw):
             out = fn(*args, **kw)
+            k = shape(*args, **kw) if self.on and shape else None
+            if k is not None:
+                seen = self.shapes.setdefault(key, {})
+                if k in seen:
+                    seen[k][0] += 1
+                else:
+                    seen[k] = [1, args, kw]
             if self.on and size is None:
                 self.every.setdefault(key, []).append((args, kw))
             elif self.on:
@@ -274,6 +337,17 @@ class Capture:
                     self.inputs[key] = (s, args, kw)
             return out
         return wrapped
+
+
+# launch shapes kept with their counts: (R, W, F, K, w32) of
+# gather_intersect and (F, K, W) of intersect; None where the wrapper
+# launches nothing (no rows)
+HISTOGRAM = {
+    "gather_intersect": lambda m, i, w32: (
+        (*m.shape, *i.shape, w32) if i.shape[0] else None),
+    "intersect": lambda r: tuple(r.shape) if r.shape[0] and r.shape[2]
+    else None,
+}
 
 
 def capture_inputs():
@@ -909,11 +983,13 @@ def edge_cases(torch, np):
     m = lanes(41, 132)
     m[-1] = 0
     for f, k, w32 in ((1, 1, 2), (5, 2, 6), (33, 3, 130), (300, 4, 132),
-                      (130, 40, 66), (9, 70, 132)):
+                      (130, 40, 66), (9, 70, 132), (257, 5, 62),
+                      (1, 1, 132)):
         idx = torch.from_numpy(rng.integers(0, 41, size=(f, k)).astype(
             np.int32)).cuda()
         cases.append(("gather_intersect", (m, idx), {"w32": w32}))
-    for f, k, w in ((3, 1, 4), (129, 2, 8), (256, 5, 132), (129, 64, 132)):
+    for f, k, w in ((3, 1, 4), (129, 2, 8), (256, 5, 132), (129, 64, 132),
+                    (1, 3, 1024), (1023, 1, 260)):
         cases.append(("intersect", (lanes(f, k, w),), {}))
     # expand_pairs: W % 4 != 0 (4-byte loads), n_i off a multiple of 32,
     # a cut inside a 256-lane segment, a zero fill, one wide row, all-ones
@@ -1144,8 +1220,42 @@ def closure_library_ms(torch, r) -> float:
     return ms
 
 
+def launch_floor_ms(torch, flush) -> float:
+    """A launch of a kernel that does nothing, timed as ``ms`` is (cold
+    L2, CUDA graph, the flush subtracted): the floor of every time in the
+    ``kernels`` line."""
+    from repro_torch.kernels import _build
+    fn = _build.function("frontier_kernels", "rt_empty", [ctypes.c_void_p])
+    return cold_ms(torch, lambda: _build.check(
+        fn(torch.cuda.current_stream().cuda_stream), "empty_kernel"), flush,
+        iters=REPS["cold"])
+
+
+def and_rows_yardstick(torch, name, args, kw, flush):
+    """A plain copy of the bytes an AND-row kernel moves, timed as its
+    ``ms``: for ``gather_intersect`` an ``index_select`` of each frontier
+    row's first gathered row, cut to ``w32`` lanes (the same bytes at
+    K = 1); for ``intersect`` a copy of each slab row's first constraint
+    row into the output's shape.  Returns (ms, what was timed)."""
+    if name == "gather_intersect":
+        matrix, idx = args
+        src = matrix[:, :kw["w32"]]
+        first = idx[:, 0].long()
+        out = torch.empty((idx.shape[0], kw["w32"]), dtype=matrix.dtype,
+                          device=matrix.device)
+        call = (lambda: torch.index_select(src, 0, first, out=out))
+        what = "torch.index_select of each row's first gathered row, w32 lanes"
+    else:
+        (rows,) = args
+        out = torch.empty((rows.shape[0], rows.shape[2]), dtype=rows.dtype,
+                          device=rows.device)
+        call = (lambda: out.copy_(rows[:, 0]))
+        what = "copy of each slab row's first constraint row, (F, W)"
+    return cold_ms(torch, call, flush, iters=REPS["cold"]), what
+
+
 def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
-                 inputs, closure_info, dense_info):
+                 inputs, shapes, closure_info, dense_info, spills):
     from repro_torch.kernels import packed, ref
     from repro_torch.kernels.bitmm import bitmm
     from repro_torch.kernels.closure import closure_step, transpose
@@ -1217,6 +1327,38 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
                     reps=reps)
         del buf
         return m
+
+    def histogram(name):
+        """Every launch shape the paths gave ``name``, largest count
+        first: held to the plain version, timed cold, with its launches
+        and bound."""
+        out = []
+        for key, (n, args, kw) in sorted(shapes.get(name, {}).items(),
+                                         key=lambda e: (-e[1][0], e[0])):
+            got = kernels[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(as_tuple(got), as_tuple(want))
+            if err != 0:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at launch shape {key}")
+            del got, want
+            distinct = (int(args[1].unique().numel())
+                        if name == "gather_intersect" else None)
+            out.append({"shape": list(key), "launches": n, "max_abs_err": err,
+                        "distinct_rows": distinct,
+                        "ms": cold_ms(torch, lambda: kernels[name](*args,
+                                                                   **kw),
+                                      flush, iters=REPS["cold"]),
+                        "bound_ms": bound_ms(name, args, kw)[0]})
+            log(f"[{card}] kernel {name} launch shape {key}: {n} launches, "
+                f"{out[-1]['ms']:.6f} ms (cold L2), bound "
+                f"{out[-1]['bound_ms']:.6f} ms")
+        return out
+
+    floor_ms = launch_floor_ms(torch, flush)
+    log(f"[{card}] launch floor (an empty kernel, CUDA graph, cold L2): "
+        f"{floor_ms:.6f} ms")
 
     def closure_row(r):
         m = measure_into("closure_step", r, CLOSURE_REPS)
@@ -1320,6 +1462,24 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             row["count_only"] = measure(name, args, kw | {"expand": False})
         if name == "transpose":
             row.update({k: m[k] for k in ("copy_ms", "word_transpose_ms")})
+        if name in HISTOGRAM:
+            hist = histogram(name)
+            on_paths = by_path["gm_match"] + by_path["serve"]
+            if sum(h["launches"] for h in hist) != on_paths:
+                raise AssertionError(f"{name}: the shape histogram holds "
+                                     f"{sum(h['launches'] for h in hist)} "
+                                     f"launches, the paths made {on_paths}")
+            row["shapes"] = hist
+            row["path_ms"] = sum(h["launches"] * h["ms"] for h in hist)
+            row["launch_floor_ms"] = floor_ms
+            row["copy_ms"], row["copy_call"] = and_rows_yardstick(
+                torch, name, *inputs[name][1:], flush)
+            row["ptxas_spills"] = {k: list(v) for k, v in spills.items()
+                                   if k.split("<")[0] == f"{name}_kernel"}
+            log(f"[{card}] kernel {name}: {len(hist)} launch shapes, "
+                f"{row['path_ms']:.6f} ms summed over the paths' launches "
+                f"(cold); yardstick {row['copy_call']} {row['copy_ms']:.6f} "
+                f"ms; launch floor {floor_ms:.6f} ms")
         if name == "closure_step":
             row["closure"] = closure_info
             # the dense closure: every row of its last step is dense
@@ -1371,13 +1531,17 @@ def main() -> int:
     built = _build.ensure_built()
     log(f"[{card}] nvcc build of {len(_build.sources())} source(s): "
         f"{built:.2f} s")
-    for src, text in _build.build_log.items():
+    for src in _build.sources():
         kernel = "?"
-        for line in text.splitlines():
+        for line in _build.report(src.stem).splitlines():
             if "entry function" in line:
                 kernel = kernel_name(line)
             elif "registers" in line or "spill" in line:
-                log(f"  {src} {kernel}: {line.strip()}")
+                log(f"  {src.stem} {kernel}: {line.strip()}")
+    spills = ptxas_spills(_build)
+    spilled = {k: v for k, v in spills.items() if any(v)}
+    log(f"[{card}] ptxas spills (store, load bytes) of {', '.join(NO_SPILL)}:"
+        f" {json.dumps(spills, sort_keys=True)}")
 
     capture = capture_inputs()
     t0 = time.perf_counter()
@@ -1421,7 +1585,7 @@ def main() -> int:
                          "closure": closure_launches,
                          "int64_count": int64_launches},
                         per_query, device_calls, capture.inputs,
-                        closure_info, dense_info)
+                        capture.shapes, closure_info, dense_info, spills)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -1430,6 +1594,8 @@ def main() -> int:
         raise AssertionError(f"imported modules outside the port: {leaked}")
     log(f"[{card}] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
+    if spilled:
+        raise AssertionError(f"ptxas reports spills in {spilled}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

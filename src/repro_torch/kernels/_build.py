@@ -5,9 +5,10 @@ shared library with a plain C interface and loaded with :mod:`ctypes`
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout; a library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  All sources are compiled
-together, one ``nvcc`` process each, at first use: importing this module
-compiles nothing.
+rebuilt and an unchanged one is reused; the compiler's output (ptxas's
+register and spill report) is kept beside each library.  All sources are
+compiled together, one ``nvcc`` process each, at first use: importing
+this module compiles nothing.
 
 Each C launcher takes device pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero
@@ -38,8 +39,6 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 _launches: Dict[str, int] = {}
-#: compiler output of the builds this process ran, by source name
-build_log: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -63,6 +62,10 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _report(src: Path) -> Path:
+    return _target(src).with_suffix(".log")
+
+
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -71,7 +74,8 @@ def ensure_built() -> float:
     """Compile every source whose library is missing, all at once.
     Returns the wall seconds spent (0.0 when everything was built)."""
     with _lock:
-        todo = [(s, _target(s)) for s in sources() if not _target(s).exists()]
+        todo = [(s, _target(s)) for s in sources()
+                if not (_target(s).exists() and _report(s).exists())]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,15 +91,22 @@ def ensure_built() -> float:
         failed = []
         for src, out, tmp, proc in procs:
             log, _ = proc.communicate()
-            build_log[src.stem] = log
             if proc.returncode != 0:
                 failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                _report(src).write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return time.perf_counter() - t0
+
+
+def report(name: str) -> str:
+    """The compiler's output of the build of ``csrc/<name>.cu``, built
+    first if needed."""
+    ensure_built()
+    return _report(CSRC / f"{name}.cu").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,21 +6,37 @@
 // gather_intersect  replaces src/repro/kernels/gather_intersect.py
 //                   gather_intersect_pallas (TPU kernel _gather_intersect_kernel).
 //   For each of F frontier rows: gather K rows of the resident matrix
-//   (R, W), AND them over the first w32 lanes, popcount.  One warp per
-//   frontier row, 16-byte loads across lanes, the AND kept in registers,
-//   __popc and a warp-shuffle sum.  Only the w32 live lanes are read:
-//   every constraint row of a level lives in the same universe and
-//   resident rows are zero past their width.  The warp resolves its row
-//   pointers into shared memory kMaxK at a time; a K above kMaxK is ANDed
-//   chunk by chunk into the output row, so K has no limit.  Bound: memory,
-//   each distinct gathered row once (D*w32*4 bytes for D distinct indices)
-//   plus the index, the AND rows and the counts, F*(K + w32 + 1)*4 bytes.
+//   (R, W), AND them over the first w32 lanes, popcount.  Only the w32
+//   live lanes are read: every constraint row of a level lives in the same
+//   universe and resident rows are zero past their width.
 //
 // intersect         replaces src/repro/kernels/intersect.py intersect_pallas
 //                   (TPU kernel _intersect_kernel).
 //   The same body over a shipped (F, K, W) slab, its rows addressed
-//   directly (no pointer table, any K).  Bound: memory,
-//   F*(K*W + W + 1)*4 bytes.
+//   directly.
+//
+//   Both are one memory round trip at the paths' sizes (a few MB), so the
+//   design spreads the loads over the whole card and puts them all in
+//   flight at once.  A row is cut into chunks of V lanes (16-byte chunks;
+//   gather_intersect's are 8-byte ones where w32 % 4 == 2); each row gets
+//   a group of g threads, the least power of two (at most the 256-thread
+//   block) that gives each thread one chunk, so a short row shares a warp
+//   with others and a long one takes a block.  A
+//   thread reads its row pointers from idx itself (no shared table, no
+//   synchronization), issues all its loads (its chunks of KT rows; KT = K
+//   up to 4, else groups of 4 rows ANDed in turn, so K has no limit)
+//   before any AND, stores each chunk whole, and the group sums its
+//   popcounts by shuffles (g <= 32) or through shared memory (a group of
+//   warps), so each count is written once by the launch that owns the
+//   whole row: no memset, no atomics, no second pass.
+//   Bound: memory.  gather_intersect: each distinct gathered row once
+//   (D*w32*4 bytes for D distinct indices) plus the index, the AND rows
+//   and the counts, F*(K + w32 + 1)*4 bytes; intersect: F*(K*W + W + 1)*4
+//   bytes.  At the paths' largest inputs (3.9 and 3.7 MB) the bytes take
+//   about 1.1 us, and a launch alone costs about as much (an empty kernel
+//   in a CUDA graph); gather_intersect then waits on two dependent memory
+//   round trips (the index, then the rows) and intersect on one, so both
+//   take about what a plain copy of the same bytes takes, 3x the bound.
 //
 // segment_counts + segment_write  replace src/repro/kernels/gather_intersect.py
 //                   expand_pairs (plain XLA on the TPU: unpack + nonzero) and,
@@ -69,10 +85,18 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;            // one warp per frontier row
+constexpr int kRowsPerBlock = 8;            // segment kernels: 8 warps
 constexpr int kThreads = kWarp * kRowsPerBlock;
 constexpr int kMaxK = kWarp;                // row pointers per shared chunk
 constexpr unsigned kFull = 0xffffffffu;
+
+// AND-row kernels: 256 threads a block (of 64 to 256 threads, and of 1,
+// 2 or 4 chunks a thread, 256 and 1 were among the fastest at every
+// launch shape of the paths), and the template bound of K (rows loaded
+// before their AND).
+constexpr int kAndBlockLog2 = 8;
+constexpr int kAndBlock = 1 << kAndBlockLog2;
+constexpr int kMaxKT = 4;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -84,85 +108,119 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// AND of the k rows p(0..k) over lanes [0, w), written to out (ANDed into
-// what out already holds when `into`: a later chunk of K); returns this
-// thread's share of the popcount of out.  Each thread reads back only
-// lanes it wrote itself.  Rows are 16-byte aligned, out is 8-byte aligned
-// (w even).
-template <typename RowPtr>
-__device__ __forceinline__ int and_popc_row(RowPtr p, int k, int w,
-                                            uint32_t* out, int lane,
-                                            bool into) {
+// A chunk of V lanes: one 16-byte or one 8-byte access.
+template <int V> struct Chunk;
+template <> struct Chunk<4> {
+  using T = uint4;
+  static __device__ __forceinline__ T ones() {
+    return make_uint4(~0u, ~0u, ~0u, ~0u);
+  }
+  static __device__ __forceinline__ T band(T a, T b) {
+    return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+  }
+  static __device__ __forceinline__ int popc(T a) {
+    return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
+  }
+};
+template <> struct Chunk<2> {
+  using T = uint2;
+  static __device__ __forceinline__ T ones() { return make_uint2(~0u, ~0u); }
+  static __device__ __forceinline__ T band(T a, T b) {
+    return make_uint2(a.x & b.x, a.y & b.y);
+  }
+  static __device__ __forceinline__ int popc(T a) {
+    return __popc(a.x) + __popc(a.y);
+  }
+};
+
+// The AND-row body of both kernels.  Row `row` of the output is the AND of
+// the k rows src(row, j) over w lanes (V lanes a chunk); the block holds
+// kAndBlock >> g_log2 rows, each with a group of g = 1 << g_log2 threads.
+// Every thread reaches the count's shuffles and barrier.
+template <int KT, int V, typename Src>
+__device__ __forceinline__ void and_rows_block(Src src, int64_t f, int k,
+                                               int w, int g_log2,
+                                               uint32_t* __restrict__ out,
+                                               int32_t* __restrict__ counts) {
+  using C = Chunk<V>;
+  using T = typename C::T;
+  const int g = 1 << g_log2;
+  const int sub = threadIdx.x & (g - 1);
+  const int64_t row = (static_cast<int64_t>(blockIdx.x)
+                       << (kAndBlockLog2 - g_log2)) + (threadIdx.x >> g_log2);
+  const int chunks = w / V;
+  // below the template bound K is KT itself (the launcher's choice), so
+  // the loop over groups of rows and its checks fold away
+  const int kk = KT < kMaxKT ? KT : k;
   int cnt = 0;
-  const int chunks = w >> 2;                // whole 4-lane (16-byte) chunks
-  for (int c = lane; c < chunks; c += kWarp) {
-    uint2* o = reinterpret_cast<uint2*>(out + 4 * c);
-    uint4 acc;
-    int j = 0;
-    if (into) {
-      const uint2 lo = o[0], hi = o[1];
-      acc = make_uint4(lo.x, lo.y, hi.x, hi.y);
-    } else {
-      acc = __ldg(reinterpret_cast<const uint4*>(p(0)) + c);
-      j = 1;
+  if (row < f) {
+    T* o = reinterpret_cast<T*>(out + row * w);
+    for (int c = sub; c < chunks; c += g) {
+      T acc = C::ones();
+      for (int j0 = 0; j0 < kk; j0 += KT) {
+        const T* p[KT];
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          p[j] = j0 + j < kk ? reinterpret_cast<const T*>(src(row, j0 + j))
+                             : nullptr;
+        T v[KT];                            // every load before any AND
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          v[j] = j0 + j < kk ? __ldg(p[j] + c) : C::ones();
+#pragma unroll
+        for (int j = 0; j < KT; ++j) acc = C::band(acc, v[j]);
+      }
+      o[c] = acc;
+      cnt += C::popc(acc);
     }
-    for (; j < k; ++j) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p(j)) + c);
-      acc.x &= v.x; acc.y &= v.y; acc.z &= v.z; acc.w &= v.w;
+  }
+  if (g_log2 <= 5) {                        // groups inside a warp
+    for (int d = g >> 1; d > 0; d >>= 1)
+      cnt += __shfl_xor_sync(kFull, cnt, d);
+    if (sub == 0 && row < f) counts[row] = cnt;
+  } else {                                  // a group of warps
+    __shared__ int part[kAndBlock / kWarp];
+    const int warp = threadIdx.x / kWarp;
+    cnt = warp_sum(cnt);
+    if (threadIdx.x % kWarp == 0) part[warp] = cnt;
+    __syncthreads();
+    if (sub == 0 && row < f) {
+      int s = 0;
+      for (int i = 0; i < (g >> 5); ++i) s += part[warp + i];
+      counts[row] = s;
     }
-    o[0] = make_uint2(acc.x, acc.y);
-    o[1] = make_uint2(acc.z, acc.w);
-    cnt += __popc(acc.x) + __popc(acc.y) + __popc(acc.z) + __popc(acc.w);
   }
-  for (int t = 4 * chunks + lane; t < w; t += kWarp) {   // ragged tail
-    uint32_t acc = into ? out[t] : __ldg(p(0) + t);
-    for (int j = into ? 0 : 1; j < k; ++j) acc &= __ldg(p(j) + t);
-    out[t] = acc;
-    cnt += __popc(acc);
-  }
-  return cnt;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int KT, int V>
+__global__ void __launch_bounds__(kAndBlock)
 gather_intersect_kernel(const uint32_t* __restrict__ matrix,
                         const int32_t* __restrict__ idx,
                         uint32_t* __restrict__ and_rows,
                         int32_t* __restrict__ counts,
-                        int64_t w_all, int f, int k, int w32) {
-  __shared__ const uint32_t* ptrs[kRowsPerBlock][kMaxK];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
-  if (row >= f) return;                     // uniform across the warp
-  const uint32_t* const* tab = ptrs[warp];
-  uint32_t* out = and_rows + row * w32;
-  int cnt = 0;
-  for (int j0 = 0; j0 < k; j0 += kMaxK) {   // uniform across the warp
-    const int kc = min(kMaxK, k - j0);
-    __syncwarp();                           // last chunk's readers are done
-    if (lane < kc)
-      ptrs[warp][lane] =
-          matrix + static_cast<int64_t>(idx[row * k + j0 + lane]) * w_all;
-    __syncwarp();
-    cnt = and_popc_row([tab](int j) { return tab[j]; }, kc, w32, out, lane,
-                       j0 > 0);
-  }
-  cnt = warp_sum(cnt);
-  if (lane == 0) counts[row] = cnt;
+                        int64_t w_all, int f, int k, int w32, int g_log2) {
+  and_rows_block<KT, V>(
+      [=](int64_t row, int j) {
+        return matrix + static_cast<int64_t>(__ldg(idx + row * k + j)) * w_all;
+      },
+      f, k, w32, g_log2, and_rows, counts);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int KT, int V>
+__global__ void __launch_bounds__(kAndBlock)
 intersect_kernel(const uint32_t* __restrict__ rows,
                  uint32_t* __restrict__ and_rows,
-                 int32_t* __restrict__ counts, int f, int k, int w) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
-  if (row >= f) return;
-  const uint32_t* base = rows + row * k * static_cast<int64_t>(w);
-  const int cnt = warp_sum(and_popc_row(
-      [base, w](int j) { return base + static_cast<int64_t>(j) * w; }, k, w,
-      and_rows + row * w, lane, false));
-  if (lane == 0) counts[row] = cnt;
+                 int32_t* __restrict__ counts, int f, int k, int w,
+                 int g_log2) {
+  and_rows_block<KT, V>(
+      [=](int64_t row, int j) {
+        return rows + (row * k + j) * static_cast<int64_t>(w);
+      },
+      f, k, w, g_log2, and_rows, counts);
 }
+
+// The floor of a launch in the timing harness: a kernel that does nothing.
+__global__ void empty_kernel() {}
 
 // lane t's bits that lie below column n_i
 __device__ __forceinline__ uint32_t live_bits(uint32_t v, int t, int n_i) {
@@ -427,9 +485,50 @@ segment_write_kernel(SegmentArgs a, const int32_t* __restrict__ counts,
   }
 }
 
-inline unsigned blocks_for(int64_t rows) {
-  return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+unsigned and_blocks(int f, int g_log2) {
+  const int rows = kAndBlock >> g_log2;
+  return static_cast<unsigned>((static_cast<int64_t>(f) + rows - 1) / rows);
 }
+
+// log2 of the threads given to each row of `chunks` chunks: the least
+// power of two that gives each thread one chunk, at most a block
+int group_log2(int chunks) {
+  int lg = 0;
+  while (lg < kAndBlockLog2 && (1 << lg) < chunks) ++lg;
+  return lg;
+}
+
+// Launch `Launch<KT, V>` for K rows: KT = K up to kMaxKT, else kMaxKT.
+template <template <int, int> class Launch, int V, typename... Args>
+void dispatch_k(int k, Args... args) {
+  switch (k < kMaxKT ? k : kMaxKT) {
+    case 1: Launch<1, V>::run(args...); break;
+    case 2: Launch<2, V>::run(args...); break;
+    case 3: Launch<3, V>::run(args...); break;
+    default: Launch<4, V>::run(args...);
+  }
+}
+
+template <int KT, int V>
+struct GatherLaunch {
+  static void run(const uint32_t* matrix, const int32_t* idx,
+                  uint32_t* and_rows, int32_t* counts, int64_t w_all, int f,
+                  int k, int w32, cudaStream_t st) {
+    const int lg = group_log2(w32 / V);
+    gather_intersect_kernel<KT, V><<<and_blocks(f, lg), kAndBlock, 0, st>>>(
+        matrix, idx, and_rows, counts, w_all, f, k, w32, lg);
+  }
+};
+
+template <int KT, int V>
+struct IntersectLaunch {
+  static void run(const uint32_t* rows, uint32_t* and_rows, int32_t* counts,
+                  int f, int k, int w, cudaStream_t st) {
+    const int lg = group_log2(w / V);
+    intersect_kernel<KT, V><<<and_blocks(f, lg), kAndBlock, 0, st>>>(
+        rows, and_rows, counts, f, k, w, lg);
+  }
+};
 
 // SMs x the blocks of `kernel` an SM holds: a persistent grid
 template <typename Kernel>
@@ -486,20 +585,36 @@ extern "C" {
 int rt_gather_intersect(const void* matrix, const void* idx, void* and_rows,
                         void* counts, int64_t w_all, int f, int k, int w32,
                         void* stream) {
-  gather_intersect_kernel<<<blocks_for(f), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(matrix), static_cast<const int32_t*>(idx),
-      static_cast<uint32_t*>(and_rows), static_cast<int32_t*>(counts), w_all,
-      f, k, w32);
+  if (f < 1 || k < 1 || w32 < 2 || w32 % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the wrapper gives a 16-byte aligned matrix of W % 4 == 0 lanes and a
+  // fresh output, so the AND rows' pitch w32 alone picks the chunk
+  const auto* m = static_cast<const uint32_t*>(matrix);
+  const auto* ix = static_cast<const int32_t*>(idx);
+  auto* out = static_cast<uint32_t*>(and_rows);
+  auto* cnt = static_cast<int32_t*>(counts);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (w32 % 4 == 0)
+    dispatch_k<GatherLaunch, 4>(k, m, ix, out, cnt, w_all, f, k, w32, st);
+  else
+    dispatch_k<GatherLaunch, 2>(k, m, ix, out, cnt, w_all, f, k, w32, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 int rt_intersect(const void* rows, void* and_rows, void* counts, int f, int k,
                  int w, void* stream) {
-  intersect_kernel<<<blocks_for(f), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<uint32_t*>(and_rows),
-      static_cast<int32_t*>(counts), f, k, w);
+  if (f < 1 || k < 1 || w < 4 || w % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dispatch_k<IntersectLaunch, 4>(
+      k, static_cast<const uint32_t*>(rows),
+      static_cast<uint32_t*>(and_rows), static_cast<int32_t*>(counts), f, k,
+      w, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of a kernel that does nothing: the timing harness's floor
+int rt_empty(void* stream) {
+  empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -84,6 +84,40 @@ def test_word_kernel_bounds_keep_their_basis(smoke):
     assert by == "bytes"
 
 
+@pytest.mark.parametrize("pattern,distinct", [("cycle", 148), ("same", 1),
+                                              ("all", 2_048)])
+def test_gather_intersect_bound_counts_distinct_rows_once(smoke, pattern,
+                                                          distinct):
+    """gather_intersect at the GM.match path's largest shape (the resident
+    matrix on meta, a small CPU index): each distinct gathered row is read
+    once over w32 lanes, however many frontier rows gather it; the index,
+    the AND rows and the counts once."""
+    matrix = torch.empty((53_632, 896), dtype=torch.int32, device="meta")
+    f, k, w32 = 1_024, 2, 832
+    rows = torch.arange(f)
+    idx = {"cycle": torch.stack([rows % 145, 50_000 + rows % 3], dim=1),
+           "same": torch.full((f, k), 7),
+           "all": torch.stack([rows, f + rows], dim=1)}[pattern].int()
+    least, by, nbytes, ops = smoke.bound_ms("gather_intersect", (matrix, idx),
+                                            {"w32": w32})
+    assert nbytes == 4 * (distinct * w32 + f * (k + w32 + 1))
+    assert ops == f * w32 * (k + 1)
+    assert by == "bytes" and least == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def test_histogram_keeps_launch_shapes_only(smoke):
+    """The shape histogram's keys: (R, W, F, K, w32) and (F, K, W); a call
+    with no rows launches nothing and is not kept."""
+    m = torch.empty((300, 256), dtype=torch.int32, device="meta")
+    idx = torch.empty((1_024, 1), dtype=torch.int32, device="meta")
+    keys = smoke.HISTOGRAM
+    assert keys["gather_intersect"](m, idx, 62) == (300, 256, 1_024, 1, 62)
+    assert keys["gather_intersect"](m, idx[:0], 62) is None
+    slab = torch.empty((512, 1, 896), dtype=torch.int32, device="meta")
+    assert keys["intersect"](slab) == (512, 1, 896)
+    assert keys["intersect"](slab[:0]) is None
+
+
 def test_transpose_bound_is_its_bytes(smoke):
     """The packed transpose reads the closure once and writes it once
     (1,454,964,736 B at epinions, 0.434 ms at 3.35 TB/s); its five swap

@@ -52,13 +52,30 @@ def _equal(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# (F, K, lanes) of the AND-row kernels: a row takes a group of threads,
+# one for each of its 16-byte (8-byte where lanes % 4 == 2) chunks rounded
+# up to a power of two, so a 256-thread block holds 256 rows of 2 lanes
+# down to one row past 512 lanes, and a row past 1,024 lanes loops; a
+# group wider than a warp sums its count in shared memory; K up to 4 is a
+# template, past it groups of 4 rows.  Lane counts around 64 and 256 and
+# w32 % 4 == 2; F = 1 and off the rows of a warp and of a block; K = 1 to
+# 5 and past a warp.
+AND_ROW_SHAPES = [(1, 1, 2), (130, 3, 66), (1000, 4, 256), (130, 40, 66),
+                  (9, 70, 256)]
+AND_ROW_SHAPES += [(130, 3, w) for w in (2, 62, 64, 254, 258, 832)]
+AND_ROW_SHAPES += [(1, 1, 832), (1, 2, 62), (7, 1, 2), (33, 2, 64),
+                   (257, 1, 130), (1023, 2, 258), (4097, 1, 6),
+                   (300, 1, 4100)]
+AND_ROW_SHAPES += [(100, k, 258) for k in (1, 2, 3, 4, 5)]
+AND_ROW_SHAPES += [(100, k, 832) for k in (4, 5)]
+AND_ROW_SHAPES += [(9, 33, 832), (20, 64, 66), (5, 70, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f,k,w32", [(1, 1, 2), (130, 3, 66),
-                                     (1000, 4, 256), (130, 40, 66),
-                                     (9, 70, 256)])
+@pytest.mark.parametrize("f,k,w32", AND_ROW_SHAPES)
 def test_gather_intersect_kernel_equals_plain(cuda, f, k, w32):
-    rng = np.random.default_rng(f + k)
-    m = _lanes(rng, 300, 256).to(cuda)
+    rng = np.random.default_rng(f + k + w32)
+    m = _lanes(rng, 300, 256 if w32 <= 256 else 4104).to(cuda)
     m[-1] = 0
     idx = torch.from_numpy(rng.integers(0, 300, size=(f, k)).astype(
         np.int32)).to(cuda)
@@ -67,10 +84,58 @@ def test_gather_intersect_kernel_equals_plain(cuda, f, k, w32):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["repeated", "zero_row", "all_same",
+                                     "all_zero"])
+def test_gather_intersect_kernel_repeated_and_zero_rows(cuda, pattern):
+    """Indices that gather one row several times for a frontier row, the
+    all-zero row among live ones, one row for every frontier row, and the
+    zero row alone (counts 0)."""
+    rng = np.random.default_rng(11)
+    m = _lanes(rng, 64, 896).to(cuda)
+    m[-1] = 0
+    f, k = 777, 3
+    idx = rng.integers(0, 64, size=(f, k)).astype(np.int32)
+    if pattern == "repeated":
+        idx[:, 1:] = idx[:, :1]
+    elif pattern == "zero_row":
+        idx[::5, 2] = 63
+    elif pattern == "all_same":
+        idx[:] = 9
+    else:
+        idx[:] = 63
+    idx = torch.from_numpy(idx).to(cuda)
+    for w32 in (66, 832):
+        got = gather_intersect(m, idx, w32=w32)
+        assert _equal(got, ref.gather_intersect_ref(m, idx, w32=w32))
+        if pattern == "all_zero":
+            assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_gather_intersect_kernel_largest_gm_shape(cuda):
+    """The GM.match path's largest launch: a 53,632 x 896-lane resident
+    matrix, 1,024 frontier rows of one constraint gathering 145 distinct
+    rows, 832 live lanes."""
+    rng = np.random.default_rng(53_632)
+    m = _lanes(rng, 53_632, 896).to(cuda)
+    m[-1] = 0
+    pool = rng.choice(53_632, size=145, replace=False)
+    idx = torch.from_numpy(pool[rng.integers(0, 145, size=(1_024, 1))]
+                           .astype(np.int32)).to(cuda)
+    assert _equal(gather_intersect(m, idx, w32=832),
+                  ref.gather_intersect_ref(m, idx, w32=832))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("f,k,w", [(3, 1, 4), (257, 4, 128), (128, 8, 132),
-                                   (129, 64, 132)])
+                                   (129, 64, 132), (1, 1, 896), (1, 3, 4),
+                                   (7, 2, 64), (33, 1, 256), (257, 2, 260),
+                                   (512, 1, 896), (1023, 3, 832),
+                                   (2049, 1, 8), (100, 5, 4100),
+                                   (9, 33, 256), (5, 70, 132)]
+                         + [(100, k, 260) for k in (1, 2, 3, 4, 5)])
 def test_intersect_kernel_equals_plain(cuda, f, k, w):
-    rows = _lanes(np.random.default_rng(f), f, k, w).to(cuda)
+    rows = _lanes(np.random.default_rng(f + k + w), f, k, w).to(cuda)
     assert _equal(intersect(rows), ref.intersect_ref(rows))
 
 

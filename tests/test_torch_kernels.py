@@ -116,6 +116,48 @@ def test_gather_intersect_matches_jax(f, k, w):
         assert np.array_equal(got_counts.numpy(), np.asarray(counts)[:f])
 
 
+# the card kernels' edge shapes: lane counts around 64 and 256 and with
+# w32 % 4 == 2 (8-byte chunks), F = 1 and off a block's rows, K around the
+# kernels' template bound (4) and past a warp (33, 64, 70)
+AND_ROW_EDGES = [(1, 1, 2), (7, 2, 62), (33, 3, 64), (5, 4, 66),
+                 (9, 5, 254), (3, 1, 256), (17, 2, 258), (2, 33, 832),
+                 (3, 64, 64), (1, 70, 130)]
+
+
+@pytest.mark.parametrize("f,k,w32", AND_ROW_EDGES)
+def test_gather_intersect_ref_matches_jax_at_edge_shapes(f, k, w32):
+    """The plain version against the XLA and the interpreted Pallas
+    kernel (one frontier row a program, so that the interpreter traces K
+    copies, not 8 K), with repeated rows and the zero row among the
+    indices.  Resident rows are zero past their width, as the resident
+    matrix holds them."""
+    rng = np.random.default_rng(f * 1000 + k * 10 + w32)
+    matrix = np.zeros((50, -(-w32 // 4) * 4 + 4), dtype=np.uint32)
+    matrix[:49, :w32] = rand_words(rng, 49, w32)
+    idx = rng.integers(0, 50, size=(f, k)).astype(np.int32)
+    idx[:, -1] = idx[0, 0]                             # a repeated row
+    if f > 1:
+        idx[-1, 0] = 49                                # the zero row
+    got_rows, got_counts = pref.gather_intersect_ref(
+        lanes(matrix), torch.from_numpy(idx), w32=w32)
+    for fn in (gather_intersect_xla,
+               lambda m, i, w32: gather_intersect_pallas(m, i, w32=w32, bf=1,
+                                                         interpret=True)):
+        rows, counts = fn(jnp.asarray(matrix), jnp.asarray(idx), w32=w32)
+        assert np.array_equal(words(got_rows), words(rows))
+        assert np.array_equal(got_counts.numpy(), np.asarray(counts))
+
+
+@pytest.mark.parametrize("f,k,w", AND_ROW_EDGES)
+def test_intersect_ref_matches_jax_at_edge_shapes(f, k, w):
+    rows = rand_words(np.random.default_rng(f * 1000 + k * 10 + w), f, k, w)
+    got_rows, got_counts = pref.intersect_ref(lanes(rows))
+    for r, c in (jref.intersect_ref(jnp.asarray(rows)),
+                 intersect_pallas(jnp.asarray(rows), interpret=True)):
+        assert np.array_equal(words(got_rows), words(r))
+        assert np.array_equal(got_counts.numpy(), np.asarray(c))
+
+
 def test_gather_intersect_zero_row_padding_is_inert():
     matrix = np.full((8, 128), 0xFFFFFFFF, dtype=np.uint32)
     matrix[-1] = 0
