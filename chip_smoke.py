@@ -31,7 +31,26 @@
    inside the ``TorchGM`` calls (the engine's resident lane may launch
    it; counts reset just before the phase and read just after).  Prints each
    request's simulation and enumeration seconds.
-4. Closure path, on the same graph object, after the serve path's engine
+4. Sharded path, on the serve path's device graph (the ``TorchGM``'s
+   ``dg``, before it is freed): ``make_local_mesh(1, 1)`` starts a
+   one-process NCCL group, ``shard_graph_arrays`` hands back the graph's
+   own stack as the one tile (no copy), and
+   ``torchgm.distributed.gm_serve_step`` (4 passes, ``top_k`` 4,096,
+   ``MAX_Q, MAX_E = 8, 16``) serves the serve path's 12 requests, reduced
+   as the engine reduces them, in batches of 8 (``pack_y`` off) and 4
+   (``pack_y`` on).  Each call must launch ``bitmm`` 18 times (4 a pass +
+   2 for the edge counts; counts reset just before the call and read just
+   after) and nothing else; its FB (``sharded_double_simulation``),
+   ``fb_sizes``, ``edge_counts`` and ``candidates`` must equal, exactly,
+   ``torchgm.simulation``'s single-device ``double_simulation``,
+   ``fb_sizes``, ``rig_edge_counts`` and the plain rule (ascending set
+   bits, the first 4,096, then -1).  Prints each call's seconds (fenced;
+   and those of the same call again, outside the counted run, whose
+   answer must be the same, with its 18 ``bitmm`` launches and the whole
+   call timed by CUDA events) and each collective's calls and payload
+   bytes as counted from the tensors passed (the bytes on the wire, a
+   ring-model estimate, in the log only); destroys the group.
+5. Closure path, on the same graph object, after the serve path's engine
    is freed: ``TorchGM(graph, closure_on_device=True)`` squares the
    reachability matrix out of the uploaded adjacency with 17
    ``closure_step`` launches (the host index is not consulted) and
@@ -44,16 +63,16 @@
    Prints ``closure_s``, each step's kernel time (CUDA events), the
    transpose time, the step after which R stopped changing (found after
    the timed run) and the bytes shipped.
-5. Dense closure: the paper's Table 1 ``human`` profile (4,674 nodes,
+6. Dense closure: the paper's Table 1 ``human`` profile (4,674 nodes,
    uniform, n_pad 5,120), whose closure is all ones, built the same way
    on the card and held to the host index's stack; prints each step's
    time (from the second step on every row takes the kernel's whole-row
    path).
-6. A count past 2^31: a directed cycle of 46,341 nodes with one label,
+7. A count past 2^31: a directed cycle of 46,341 nodes with one label,
    ``TorchGM`` from the host index with 65,536 frontier rows, and a
    2-node ``//`` query, whose count must equal the host reachability
    index's row sizes summed (n^2 = 2,147,488,281), with no overflow.
-7. Holds each kernel to its plain PyTorch version on the card, exactly, on
+8. Holds each kernel to its plain PyTorch version on the card, exactly, on
    the largest input its path gave it (``gather_expand``: the serve
    path's largest expanded level; ``expand_pairs``: also that level's AND
    rows, 65,536 x 2,384 lanes; ``closure_step``: the last step's R, and
@@ -70,17 +89,19 @@
    to the kernel's output, at B = 64 and at B = 32; ``expand_pairs``:
    ``torch.nonzero_static`` of the page's bits, unpacked beforehand and
    not timed, at both shapes; none for ``transpose``, ``gather_expand``,
-   ``gather_intersect`` and ``intersect``).  ``bitmm`` is also timed at B = 32 (the batch of 4)
-   and its CUDA-core floor printed.  ``gather_intersect`` and
-   ``intersect`` are also held to their plain versions and timed cold at
-   every launch shape the ``GM.match`` and serve paths gave them (the
-   shape histogram, with each shape's launches and the cold ms summed over
-   them), beside the launch floor (an empty kernel in the same harness)
-   and a plain copy of the same bytes (``index_select`` of the gathered
-   rows cut to ``w32``; a copy of the slab's output bytes).  Bounds: bytes
-   over 3.35 TB/s against operations over 1,979 TOP/s for ``bitmm`` (the
-   int8 tensor cores) and over 67 T/s for the others.
-8. Prints the ``kernels`` JSON line, the card's name and power limit, and
+   ``gather_intersect`` and ``intersect``).  ``bitmm`` is also timed at
+   B = 32 (the batch of 4) and in sum mode at the sharded path's
+   first-pass input (the batch of 8), and its CUDA-core floor printed.
+   ``gather_intersect`` and ``intersect`` are also held to their plain
+   versions and timed cold at every launch shape the ``GM.match`` and
+   serve paths gave them (the shape histogram, with each shape's launches
+   and the cold ms summed over them), beside the launch floor (an empty
+   kernel in the same harness) and a plain copy of the same bytes
+   (``index_select`` of the gathered rows cut to ``w32``; a copy of the
+   slab's output bytes).  Bounds: bytes over 3.35 TB/s against
+   operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor cores) and
+   over 67 T/s for the others.
+9. Prints the ``kernels`` JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, as does a spill that ptxas
@@ -146,6 +167,11 @@ BATCH = 8
 # frontier rows of the whole-graph matcher: 10 of the 12 requests finish on
 # the device without overflow
 CAPACITY = 1 << 16
+# the sharded path's serve step, as the paper's configuration sets it
+# (src/repro/configs/pattern.py:31 and :122)
+MAX_Q, MAX_E = 8, 16
+TOP_K = 4096
+SHARDED_PASSES = 4
 # the count past 2^31: a directed cycle of this many nodes (n^2 >= 2^31)
 CYCLE_NODES = 46_341
 # per-batch deadline of the server: the host re-run of an overflowed
@@ -584,8 +610,9 @@ def serve_path(torch, card: str, graph, gm, capture):
         if calls.launched.get(name, 0):
             raise AssertionError(f"kernel {name} was launched by the "
                                  f"whole-graph matcher on the serve path")
+    dg = jgm.dg
     calls.restore()
-    return total, calls.calls, queries, refs, exact
+    return total, calls.calls, queries, refs, exact, dg
 
 
 def exact_counts(card: str, gm, queries, refs, journal, capture):
@@ -617,6 +644,233 @@ def exact_counts(card: str, gm, queries, refs, journal, capture):
             f"{time.perf_counter() - t0:.2f} s)")
     capture.on = True
     return out
+
+
+class Collectives:
+    """Records each ``all_reduce`` / ``all_gather`` of ``torch.distributed``
+    that a run calls: (name, ranks in its group, payload bytes per rank);
+    the functions themselves are untouched."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.calls = []
+        self.saved = {name: getattr(dist, name)
+                      for name in ("all_reduce", "all_gather")}
+
+        def all_reduce(t, *a, group=None, **kw):
+            self.calls.append(("all_reduce", dist.get_world_size(group),
+                               t.numel() * t.element_size()))
+            return self.saved["all_reduce"](t, *a, group=group, **kw)
+
+        def all_gather(parts, t, *a, group=None, **kw):
+            self.calls.append(("all_gather", dist.get_world_size(group),
+                               t.numel() * t.element_size()))
+            return self.saved["all_gather"](parts, t, *a, group=group, **kw)
+
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+
+    def restore(self):
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+    def summary(self):
+        """{name: [calls, payload bytes]}, as counted from the tensors
+        passed."""
+        out = {}
+        for name, _, nbytes in self.calls:
+            row = out.setdefault(name, [0, 0])
+            row[0] += 1
+            row[1] += nbytes
+        return out
+
+    def ring_estimate(self):
+        """{name: bytes on the wire per rank} under a ring algorithm (an
+        all-reduce sends 2 (n - 1) / n of its payload, an all-gather
+        receives (n - 1) payloads): a model, not a reading, since NCCL
+        may choose another algorithm; for the log only."""
+        out = {}
+        for name, n, nbytes in self.calls:
+            out[name] = out.get(name, 0) + (
+                2 * (n - 1) * nbytes // n if name == "all_reduce"
+                else (n - 1) * nbytes)
+        return out
+
+
+class KernelEvents:
+    """Times each call of one ``repro_torch.kernels.ops`` wrapper with
+    CUDA events while it is installed; the wrapper and its launch count
+    are untouched."""
+
+    def __init__(self, torch, name: str):
+        from repro_torch.kernels import ops
+        self.events, self._saved = [], (ops, name, getattr(ops, name))
+        fn = self._saved[2]
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(ops, name, timed)
+
+    def restore(self):
+        module, name, fn = self._saved
+        setattr(module, name, fn)
+
+    def ms(self):
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def plain_candidates(torch, fb, top_k: int):
+    """The plain rule of the serve step's candidates: each FB row's set
+    bits in ascending order, the first ``top_k``, then -1."""
+    n_pad = fb.shape[-1]
+    ids = torch.where(fb, torch.arange(n_pad, dtype=torch.int32,
+                                       device=fb.device), n_pad)
+    ids = ids.sort(dim=-1).values[..., :top_k]
+    return torch.where(ids == n_pad, -1, ids)
+
+
+def sharded_path(torch, card: str, dg, queries):
+    """The sharded double simulation and serve step on a 1 x 1 mesh
+    (NCCL) over the serve path's device graph, whose stack is the one
+    tile.  Returns the phase's launch counts, the first pass' ``bitmm``
+    input of the batch of 8 and the phase's numbers."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.torchgm import distributed, simulation
+    from repro_torch.torchgm.encoding import encode_batch
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the card's mesh runs "
+                                 f"{dist.get_backend()}, not nccl")
+        for axis in mesh.mesh_dim_names:     # each group's communicator
+            dist.all_reduce(torch.zeros(1, device="cuda"),
+                            group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        mats, labels = distributed.shard_graph_arrays(dg, mesh)
+        if (mats.data_ptr(), mats.shape) != (dg.stack.data_ptr(),
+                                             dg.stack.shape):
+            raise AssertionError("the 1 x 1 mesh's tile is not the graph's "
+                                 "own stack")
+        total, info, first = {}, [], None
+        for lo, hi, pack_y in ((0, BATCH, False),
+                               (BATCH, len(queries), True)):
+            # the queries as the engine hands them to the device
+            qts = encode_batch([q.transitive_reduction()
+                                for q in queries[lo:hi]], MAX_Q, MAX_E)
+            coll = Collectives()
+            torch.cuda.synchronize()
+            reset_launch_counts()            # just before the serve step
+            t1 = time.perf_counter()
+            try:
+                out = distributed.gm_serve_step(
+                    mats, labels, qts, mesh, n_passes=SHARDED_PASSES,
+                    top_k=TOP_K, pack_y=pack_y)
+                torch.cuda.synchronize()
+            finally:
+                coll.restore()
+            step_s = time.perf_counter() - t1
+            launched = launch_counts()       # just after the serve step
+            want_launches = 4 * SHARDED_PASSES + 2
+            if launched != {"bitmm": want_launches}:
+                raise AssertionError(f"gm_serve_step launched {launched}, "
+                                     f"not bitmm {want_launches} times")
+            for k, v in launched.items():
+                total[k] = total.get(k, 0) + v
+            # the same call again, outside the counted run: a warm time,
+            # and the device time of its bitmm launches against the call's
+            # (CUDA events)
+            timer = KernelEvents(torch, "bitmm")
+            call0 = torch.cuda.Event(enable_timing=True)
+            call1 = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            try:
+                call0.record()
+                again = distributed.gm_serve_step(
+                    mats, labels, qts, mesh, n_passes=SHARDED_PASSES,
+                    top_k=TOP_K, pack_y=pack_y)
+                call1.record()
+                torch.cuda.synchronize()
+            finally:
+                timer.restore()
+            warm_s = time.perf_counter() - t1
+            bitmm_ms = timer.ms()
+            call_ms = call0.elapsed_time(call1)
+            if len(bitmm_ms) != want_launches:
+                raise AssertionError(f"{len(bitmm_ms)} timed bitmm calls "
+                                     f"in the second gm_serve_step, not "
+                                     f"{want_launches}")
+            if not all(torch.equal(a, b) for a, b in zip(again, out)):
+                raise AssertionError("a second gm_serve_step call gave "
+                                     "another answer")
+            del again
+            t2 = time.perf_counter()
+            fb = distributed.sharded_double_simulation(
+                mats, labels, qts, mesh, n_passes=SHARDED_PASSES,
+                pack_y=pack_y)
+            want = simulation.double_simulation(dg, qts,
+                                                n_passes=SHARDED_PASSES)
+            checks = {
+                "fb": torch.equal(fb, want),
+                "fb_sizes": torch.equal(out.fb_sizes,
+                                        simulation.fb_sizes(want)),
+                "edge_counts": torch.equal(
+                    out.edge_counts,
+                    simulation.rig_edge_counts(dg, qts, want)),
+                "candidates": torch.equal(out.candidates,
+                                          plain_candidates(torch, want,
+                                                           TOP_K))}
+            torch.cuda.synchronize()
+            if not all(checks.values()):
+                raise AssertionError(f"the sharded serve step on requests "
+                                     f"{lo}-{hi - 1} differs from the "
+                                     f"single-device functions: {checks}")
+            if first is None:
+                # A alone (a copy), so that the graph's stack is freed
+                # with the graph
+                x = simulation.initial_fb(dg, qts)
+                first = (mats[0].clone(), x.reshape(-1, x.shape[-1]).t())
+            coll_bytes = coll.summary()
+            info.append({"requests": [lo, hi], "pack_y": pack_y,
+                         "seconds": step_s, "warm_seconds": warm_s,
+                         "warm_call_ms": call_ms,
+                         "warm_bitmm_ms": sum(bitmm_ms),
+                         "launches": launched,
+                         "collectives": coll_bytes,
+                         "max_candidates": int(out.fb_sizes.max())})
+            log(f"[{card}] sharded path, requests {lo}-{hi - 1} (pack_y "
+                f"{pack_y}): gm_serve_step {step_s:.4f} s (fenced; "
+                f"{warm_s:.4f} s called again: {call_ms:.6f} ms between "
+                f"CUDA events, of it the {len(bitmm_ms)} bitmm launches "
+                f"{sum(bitmm_ms):.6f} ms, "
+                f"{100 * sum(bitmm_ms) / call_ms:.1f}%; each "
+                f"{min(bitmm_ms):.6f}-{max(bitmm_ms):.6f} ms), bitmm "
+                f"launches {launched['bitmm']}; collectives [calls, "
+                f"payload B] {json.dumps(coll_bytes, sort_keys=True)} "
+                f"(bytes on the wire per rank, ring-model estimate at "
+                f"1 x 1: {json.dumps(coll.ring_estimate(), sort_keys=True)}"
+                f"); largest "
+                f"candidate set {info[-1]['max_candidates']}; FB, fb_sizes,"
+                f" edge_counts and candidates equal the single-device "
+                f"functions ({time.perf_counter() - t2:.2f} s to check)")
+    finally:
+        dist.destroy_process_group()
+    log(f"[{card}] sharded path: 1 x 1 mesh on nccl, n_pad {dg.n_pad}, "
+        f"tile {list(mats.shape)} (the graph's own stack); group set-up "
+        f"{setup_s:.4f} s; {time.perf_counter() - t0:.1f} s in all")
+    log(f"sharded path launches: {json.dumps(total, sort_keys=True)}")
+    return total, first, {"setup_s": setup_s, "batches": info}
 
 
 class ClosureSteps:
@@ -1255,7 +1509,8 @@ def and_rows_yardstick(torch, name, args, kw, flush):
 
 
 def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
-                 inputs, shapes, closure_info, dense_info, spills):
+                 inputs, shapes, closure_info, dense_info, sharded_info,
+                 spills):
     from repro_torch.kernels import packed, ref
     from repro_torch.kernels.bitmm import bitmm
     from repro_torch.kernels.closure import closure_step, transpose
@@ -1434,6 +1689,17 @@ def kernel_phase(torch, np, card: str, launches, per_query, device_calls,
             log(f"[{card}] kernel bitmm at B = 32: library torch._int_mm of "
                 f"the unpacked int8 A by X "
                 f"{row['batch_of_4']['library_ms']:.6f} ms")
+            # the sharded path's sum mode: the 1 x 1 mesh's tile (A itself)
+            # by the batch of 8's first-pass columns
+            sargs, skw = inputs["bitmm@sharded"][1:]
+            sharded = measure(name, sargs, skw)
+            sharded["library_ms"] = bitmm_library_ms(torch, *sargs, **skw)
+            row["sharded"] = sharded | {"path": sharded_info}
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     sharded["max_abs_err"])
+            log(f"[{card}] kernel bitmm in sum mode (sharded path): library "
+                f"torch._int_mm of the unpacked int8 A by X "
+                f"{sharded['library_ms']:.6f} ms")
         if name == "expand_pairs":
             args, kw = inputs[name][1:]
             library_ms, row["library_call"] = expand_library_ms(
@@ -1557,12 +1823,17 @@ def main() -> int:
     t0 = time.perf_counter()
     gm_launches, per_query = gm_path(torch, card, graph, gm)
     t1 = time.perf_counter()
-    serve_launches, device_calls, queries, refs, exact = serve_path(
+    serve_launches, device_calls, queries, refs, exact, dg = serve_path(
         torch, card, graph, gm, capture)
     capture.on = False
     level = capture.keep_largest("gather_expand", level_size)
     log(f"[{card}] serve path: largest expanded level kept for the kernel "
         f"phase: {level[1]} gathered rows")
+    t_sharded = time.perf_counter()
+    sharded_launches, sharded_input, sharded_info = sharded_path(
+        torch, card, dg, queries)
+    capture.inputs["bitmm@sharded"] = (0, sharded_input, {"threshold": False})
+    del dg, sharded_input
     t2 = time.perf_counter()
     closure_launches, last_r, closure_t, closure_info = closure_path(
         torch, card, graph, queries, refs, exact)
@@ -1578,14 +1849,17 @@ def main() -> int:
     int64_launches = int64_count_case(torch, card)
     t5 = time.perf_counter()
     log(f"[{card}] GM.match path {t1 - t0:.1f} s, serve path "
-        f"{t2 - t1:.1f} s, closure path {t3 - t2:.1f} s, dense closure "
+        f"{t_sharded - t1:.1f} s, sharded path {t2 - t_sharded:.1f} s, "
+        f"closure path {t3 - t2:.1f} s, dense closure "
         f"{t4 - t3:.1f} s, count past 2^31 {t5 - t4:.1f} s")
     rows = kernel_phase(torch, np, card,
                         {"gm_match": gm_launches, "serve": serve_launches,
+                         "sharded": sharded_launches,
                          "closure": closure_launches,
                          "int64_count": int64_launches},
                         per_query, device_calls, capture.inputs,
-                        capture.shapes, closure_info, dense_info, spills)
+                        capture.shapes, closure_info, dense_info,
+                        sharded_info, spills)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"

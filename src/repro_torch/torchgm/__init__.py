@@ -5,7 +5,9 @@
 # executors of the host-driven MJoin: the resident-RIG packing
 # (device_graph) and the slab / resident executors (frontier).  The
 # process-wide device pin lives in ``frontier`` (DEFAULT_DEVICE): set it on
-# that module.
+# that module.  The sharded simulation and serve step over a
+# ``torch.distributed`` mesh are in ``distributed``, which callers import
+# themselves (it is not re-exported here).
 from .device_graph import (DeviceGraph, from_host, pack_resident_rig,
                            stacked_matrices)
 from .encoding import QueryTensor, encode_batch, encode_query, jo_order

@@ -65,6 +65,15 @@ def _edge_pass(dg: DeviceGraph, fb: torch.Tensor, n_e: int,
     y = torch.stack([ops.bitmm(dg.stack[i], x) for i in range(4)])
     # y[mat, b, q] -> (n_pad,): mat 0/1 forward child/desc, 2/3 backward
     y = y.reshape(4, n_pad, bq, max_q).permute(0, 2, 3, 1)
+    return apply_edge_masks(fb, y, n_e, edges)
+
+
+def apply_edge_masks(fb: torch.Tensor, y: torch.Tensor, n_e: int,
+                     edges: tuple) -> torch.Tensor:
+    """FB (Bq, max_q, n) pruned by one pass's products ``y`` (4, Bq,
+    max_q, n) bool: forward child / desc, backward child / desc, each
+    column a query node's existence test over the same n nodes."""
+    bq = fb.shape[0]
     src, dst, kind = edges
     bidx = torch.arange(bq, device=fb.device)
     keep = torch.ones_like(fb)
@@ -127,17 +136,27 @@ def rig_edge_counts(dg: DeviceGraph, qt: QueryTensor,
     fb = fb.reshape(-1, *fb.shape[-2:])
     bq, max_q, n_pad = fb.shape
     x = _columns(fb)
-    counts = [ops.bitmm(m, x, threshold=False)
-              .reshape(n_pad, bq, max_q).permute(1, 2, 0)
-              for m in (dg.adj, dg.reach)]          # (Bq, max_q, n_pad)
-    _, (src, dst, kind) = _edges(qt, dg.device)
+    counts = torch.stack([ops.bitmm(m, x, threshold=False)
+                          for m in (dg.adj, dg.reach)])
+    counts = counts.reshape(2, n_pad, bq, max_q).permute(0, 2, 3, 1)
+    out = edge_sums(fb, counts, qt).to(torch.float32)
+    return out[0] if single else out
+
+
+def edge_sums(fb: torch.Tensor, counts: torch.Tensor,
+              qt: QueryTensor) -> torch.Tensor:
+    """(Bq, max_e) float64: per query edge, the sum over the nodes v of
+    FB(src) (Bq, max_q, n) of ``counts`` (2, Bq, max_q, n) — child / desc
+    successors of v inside FB(dst), float32 — taken in float64 (exact);
+    0 on padding edges."""
+    bq = fb.shape[0]
+    _, (src, dst, kind) = _edges(qt, fb.device)
     bidx = torch.arange(bq, device=fb.device)
     out = torch.zeros((bq, qt.max_e), dtype=torch.float64, device=fb.device)
     for e in range(qt.max_e):
         s, d, k = src[:, e], dst[:, e], kind[:, e]
         per_node = torch.where((k == 1)[:, None], counts[1][bidx, d],
-                               counts[0][bidx, d])   # (Bq, n_pad)
+                               counts[0][bidx, d])   # (Bq, n)
         masked = torch.where(fb[bidx, s], per_node.double(), 0.0).sum(-1)
         out[:, e] = torch.where(k >= 0, masked, 0.0)
-    out = out.to(torch.float32)
-    return out[0] if single else out
+    return out

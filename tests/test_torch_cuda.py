@@ -30,6 +30,7 @@ from repro_torch.kernels.gather_intersect import (expand_pairs,  # noqa: E402
 from repro_torch.kernels.intersect import intersect  # noqa: E402
 from repro_torch.obs.ledger import LEDGER  # noqa: E402
 from repro_torch.torchgm import TorchGM, device_graph, frontier  # noqa: E402
+from repro_torch.torchgm import distributed  # noqa: E402
 
 RESIDENT = "frontier-device-resident"
 
@@ -389,6 +390,57 @@ def test_bitmm_kernel_empty_and_full(cuda, k):
                        torch.full((m, b), float(k), device=cuda))
     with pytest.raises(ValueError):
         bitmm(ones, torch.full((k, b), 2.0, device=cuda))
+
+
+class _Rank:
+    """What ``shard_graph_arrays`` reads of a rank's (data, model) mesh."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, coords):
+        self.shape, self.coords = shape, coords
+
+    def get_local_rank(self, axis):
+        return self.coords[self.mesh_dim_names.index(axis)]
+
+
+# (row degree, model degree) of the sharded simulation's tiles: n_pad 2,304
+# is 72 words, so model degrees 1 and 2 give w_l 72 and 36 (multiples of 4)
+# and 4 and 8 give 18 and 9 (not); row degree 18 cuts tiles of one 128-row
+# block
+MESH_TILES = [(rows, model) for model in (1, 2, 4, 8) for rows in (1, 4, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,model", MESH_TILES)
+@pytest.mark.parametrize("threshold", [True, False])
+def test_bitmm_kernel_on_mesh_tiles(cuda, rows, model, threshold):
+    """``bitmm`` on every (rows_l, w_l) tile that ``shard_graph_arrays``
+    cuts from a random packed stack, by the shard's FB columns in the form
+    the sharded pass hands them over (K = np_l = 32 w_l)."""
+    rng = np.random.default_rng(10 * rows + model)
+    n_pad = 2304
+    stack = _lanes(rng, 4, n_pad, n_pad // 32)
+    keep = torch.from_numpy(rng.random(stack.shape) < 0.2)
+    stack = torch.where(keep, stack, 0).to(cuda)
+    dg = device_graph.DeviceGraph(
+        n=n_pad, n_pad=n_pad, stack=stack,
+        labels=torch.zeros(n_pad, dtype=torch.int32, device=cuda))
+    fb = torch.from_numpy(rng.random((2, 8, n_pad)) < 0.3).to(cuda)
+    np_l = n_pad // model
+    for r in range(rows):
+        for c in range(model):
+            tile, labels = distributed.shard_graph_arrays(
+                dg, _Rank((rows, model), (r, c)))
+            assert tile.shape == (4, n_pad // rows, n_pad // 32 // model)
+            assert tile.is_contiguous() and labels.shape == (np_l,)
+            x = fb[..., c * np_l:(c + 1) * np_l].contiguous()
+            x = x.reshape(-1, np_l).t()
+            for m in range(4):
+                reset_launch_counts()
+                got = bitmm(tile[m], x, threshold=threshold)
+                assert launch_counts().get("bitmm") == 1
+                want = ref.bitmm_ref(tile[m], x, threshold=threshold)
+                assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 @pytest.mark.cuda

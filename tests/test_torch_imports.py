@@ -47,6 +47,8 @@ import sys
 from repro_torch.torchgm import frontier
 frontier.DEFAULT_DEVICE = "cpu"
 from repro_torch.core import GM, GMOptions, ENUM_METHODS
+import repro_torch.core.baselines, repro_torch.launch.mesh
+import repro_torch.torchgm.distributed
 from repro_torch.data.graphs import random_labeled_graph
 from repro_torch.data.queries import random_query_from_graph
 g = random_labeled_graph(50, avg_degree=2.5, n_labels=3, seed=1)
