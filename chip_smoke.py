@@ -101,8 +101,32 @@
    slab's output bytes).  Bounds: bytes over 3.35 TB/s against
    operations over 1,979 TOP/s for ``bitmm`` (the int8 tensor cores) and
    over 67 T/s for the others.
-9. Prints the ``kernels`` JSON line, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+9. LM trainer path, after the graph paths' device tensors are freed (it
+   launches none of the kernels above: its products are ``torch.matmul``
+   / ``torch.einsum``; the launch counts must stay zero):
+   qwen1.5-4b whole (40 layers, published widths, 3.95 B parameters,
+   bf16, random weights from a seeded generator) takes 4 AdamW steps
+   through ``launch.train.make_step`` on the token pipeline at B = 2,
+   T = 1,024; each step fenced and timed (seconds, tokens/s, 6·N·D model
+   FLOP/s and its share of the 989 TFLOP/s dense bf16 peak of NVIDIA's
+   H100 SXM data sheet), a fifth split into forward + backward and
+   update, and the peak of ``torch.cuda.max_memory_allocated``.  Every
+   loss and gradient norm must be finite and the first loss within
+   (ln V, ln V + 1); 8 ``decode_step`` calls from an empty cache must
+   equal ``forward``'s logits at the same positions (max |err| <= 0.25,
+   rms <= 0.02), and the flash (kv_chunk 256) and chunked (loss_chunk
+   256) losses the dense one within 0.01.  deepseek-moe-16b at full
+   width, 2 of its 28 layers (its AdamW state for all 28 does not fit in
+   80 GB), takes 2 steps with the same numbers and the routed choices
+   dropped at capacity.  qwen2-7b's smoke config in float32 (TF32 off)
+   on the card and on the CPU from the same weights and batch: loss and
+   gradients within 1e-5, parameters, m and v after 2 ``apply_updates``
+   from the CPU's gradients within 1e-6 (relative to each leaf's largest
+   entry).  ``ElasticTrainer`` at smoke size on the card crashes after
+   step 3 of 6 and resumes from its step-2 checkpoint; its final state
+   must equal an uninterrupted run's.
+10. Prints the ``lm`` JSON line, the ``kernels`` JSON line, the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, as does a spill that ptxas
 reports in any instantiation of ``gather_intersect_kernel`` or
@@ -1121,6 +1145,357 @@ def int64_count_case(torch, card: str):
     return launched
 
 
+# ----------------------------------------------------------------- LM path
+# NVIDIA's H100 SXM data sheet: dense bf16 on the tensor cores (no
+# sparsity), at the full 700 W power limit
+BF16_PEAK_FLOPS = 989e12
+BF16_PEAK_SOURCE = "NVIDIA H100 SXM data sheet, dense bf16, 989 TFLOP/s"
+LM_DEVICE = "cuda"
+LM_BATCH, LM_SEQ = 2, 1024
+# (arch, layers (None: all), optimizer steps) of the full-width runs:
+# deepseek-moe-16b's AdamW state for all 28 layers does not fit in 80 GB
+LM_RUNS = (("qwen1.5-4b", None, 4), ("deepseek-moe-16b", 2, 2))
+LM_DECODE = 8
+LM_CHUNK = 256
+# bf16 tolerances at full width: the decode path runs other matmul shapes
+# than forward (M = 2 rows, not 2,048), so each of 40 layers may round a
+# bf16 output an ulp (2^-8) apart; logits have unit scale
+DECODE_ATOL = 0.25
+DECODE_RMS = 0.02
+# flash and chunked losses against the dense loss (about 12.4): the same
+# rounding points, another summation order
+LOSS_ATOL = 0.01
+# float32, TF32 off: the card against the CPU from the same weights
+CARD_CPU_REL = {"loss": 1e-5, "grads": 1e-5, "updated": 1e-6}
+
+
+def lm_train(torch, card: str, arch_id: str, n_layers, steps: int):
+    """``steps`` optimizer steps of one LM arch at its published width
+    (depth ``n_layers`` or all), bf16, random weights from a seeded
+    generator, through ``launch.train.make_step`` on the token pipeline at
+    B = 2, T = 1,024; each step fenced and timed.  Returns the numbers,
+    the parameters and the last batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LMArch
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import tree as tr
+
+    cfg = get_config(arch_id).cfg
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    arch = LMArch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what the run found allocated
+    t0 = time.perf_counter()
+    params = tf.TransformerLM(cfg, generator=torch.Generator(
+        LM_DEVICE).manual_seed(0)).params
+    state = {"params": params, "opt": init_state(params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, batch=LM_BATCH, seq_len=LM_SEQ, seed=0))
+    # the launcher's optimizer settings (launch/train.py main)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=min(20, steps // 5),
+                       total_steps=steps, weight_decay=0.01)
+    step = make_step(lambda p, b: tf.loss_fn(p, b, cfg), ocfg)
+    flops = arch.model_flops(dict(kind="train", seq_len=LM_SEQ,
+                                  global_batch=LM_BATCH))
+    out = {"layers": cfg.n_layers, "of_layers": get_config(arch_id).cfg
+           .n_layers, "n_params": cfg.n_params(),
+           "n_active_params": cfg.n_active_params(), "batch": LM_BATCH,
+           "seq_len": LM_SEQ, "init_s": init_s, "model_flops_per_step": flops,
+           "step_s": [], "tokens_per_s": [], "model_flops_per_s": [],
+           "bf16_peak_share": [], "loss": [], "grad_norm": []}
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(LM_DEVICE)
+                 for k, v in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["step_s"].append(dt)
+        out["tokens_per_s"].append(LM_BATCH * LM_SEQ / dt)
+        out["model_flops_per_s"].append(flops / dt)
+        out["bf16_peak_share"].append(flops / dt / BF16_PEAK_FLOPS)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        log(f"[{card}] {arch_id} ({cfg.n_layers} layers) step {i}: "
+            f"{dt:.4f} s, {LM_BATCH * LM_SEQ / dt:.1f} tokens/s, "
+            f"{flops / dt / 1e12:.2f} model TFLOP/s "
+            f"({100 * flops / dt / BF16_PEAK_FLOPS:.2f}% of the bf16 peak), "
+            f"loss {out['loss'][-1]:.4f}, grad_norm "
+            f"{out['grad_norm'][-1]:.4f}")
+    # the run's own peak: parameters, gradients, AdamW state, activations
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["found_allocated_bytes"] = base
+    # where a step's time goes: one step more, its forward + backward and
+    # its update fenced and timed apart
+    params = state["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tf.loss_fn(params, batch, cfg)
+    grads = tr.unflatten_like(params, torch.autograd.grad(
+        loss, tr.leaves(params)))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    apply_updates(params, grads, state["opt"], ocfg)
+    torch.cuda.synchronize()
+    out["split_s"] = {"forward_backward": t1 - t0,
+                      "update": time.perf_counter() - t1}
+    del loss, grads
+    log(f"[{card}] {arch_id}: {cfg.n_params():,} parameters, init "
+        f"{init_s:.2f} s, peak memory {out['peak_bytes']:,} B above the "
+        f"{base:,} B found allocated; a further "
+        f"step split: forward + backward "
+        f"{out['split_s']['forward_backward']:.4f} s, update "
+        f"{out['split_s']['update']:.4f} s")
+    bad = [v for v in out["loss"] + out["grad_norm"] if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{arch_id}: non-finite loss or grad_norm {bad}")
+    return out, state["params"], batch, cfg
+
+
+def lm_checks(torch, card: str, params, batch, cfg, out: dict) -> None:
+    """The first loss near ln V + 0.5 (logits of unit variance at init);
+    ``LM_DECODE`` decode steps from an empty cache equal to forward's
+    logits at the same positions; the flash (kv_chunk 256) and chunked
+    (loss_chunk 256) losses equal to the dense loss."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    ln_v = math.log(cfg.vocab)
+    if not ln_v < out["loss"][0] < ln_v + 1:
+        raise AssertionError(f"first loss {out['loss'][0]} outside "
+                             f"(ln V, ln V + 1) = ({ln_v}, {ln_v + 1})")
+    tokens = batch["tokens"][:, :LM_DECODE]
+    with torch.no_grad():
+        full = tf.forward(params, tokens, cfg)
+        cache = tf.init_cache(cfg, LM_BATCH, LM_DECODE, LM_DEVICE)
+        steps = []
+        for i in range(LM_DECODE):
+            logits, cache = tf.decode_step(params, cache,
+                                           tokens[:, i:i + 1], cfg)
+            steps.append(logits)
+        diff = torch.cat(steps, 1) - full
+        out["decode_max_abs_err"] = float(diff.abs().max())
+        out["decode_rms_err"] = float(diff.square().mean().sqrt())
+        out["logits_rms"] = float(full.square().mean().sqrt())
+        losses = {}
+        for name, over in (("dense", {}),
+                           ("flash", dict(flash_attention=True,
+                                          kv_chunk=LM_CHUNK)),
+                           ("chunked", dict(chunked_loss=True,
+                                            loss_chunk=LM_CHUNK))):
+            losses[name] = float(tf.loss_fn(
+                params, batch, dataclasses.replace(cfg, **over)))
+    out["loss_dense_flash_chunked"] = [losses[k] for k in
+                                       ("dense", "flash", "chunked")]
+    log(f"[{card}] {cfg.name}: decode x {LM_DECODE} against forward: max "
+        f"|err| {out['decode_max_abs_err']:.6f}, rms {out['decode_rms_err']:.6f}"
+        f" (logits rms {out['logits_rms']:.4f}); losses dense / flash / "
+        f"chunked {losses['dense']:.6f} / {losses['flash']:.6f} / "
+        f"{losses['chunked']:.6f}")
+    if not (out["decode_max_abs_err"] <= DECODE_ATOL
+            and out["decode_rms_err"] <= DECODE_RMS):
+        raise AssertionError(f"decode differs from forward: max "
+                             f"{out['decode_max_abs_err']} (limit "
+                             f"{DECODE_ATOL}), rms {out['decode_rms_err']} "
+                             f"(limit {DECODE_RMS})")
+    for name in ("flash", "chunked"):
+        if not abs(losses[name] - losses["dense"]) <= LOSS_ATOL:
+            raise AssertionError(f"{name} loss {losses[name]} against dense "
+                                 f"{losses['dense']} (limit {LOSS_ATOL})")
+
+
+def moe_dropped(torch, params, tokens, cfg) -> list:
+    """Routed choices dropped at capacity in each MoE layer, in a no-grad
+    forward of ``tokens``: each layer's router on its own input, the
+    dispatch rule of ``moe_ffn``."""
+    from repro_torch.models import transformer as tf
+
+    dropped, moe_ffn = [], tf.moe_ffn
+
+    def counting(x, layer, cfg):
+        cap = math.ceil(x.shape[1] * cfg.top_k / cfg.n_experts
+                        * cfg.capacity_factor)
+        sel = torch.topk((x @ layer["router"]).float(), cfg.top_k,
+                         dim=-1).indices
+        dropped.append(int((~tf.moe_dispatch(sel, cfg.n_experts,
+                                             cap)[2]).sum()))
+        return moe_ffn(x, layer, cfg)
+
+    tf.moe_ffn = counting
+    try:
+        with torch.no_grad():
+            tf.forward_hidden(params, tokens, cfg)
+    finally:
+        tf.moe_ffn = moe_ffn
+    return dropped
+
+
+def _max_rel(torch, got, want) -> float:
+    """max |got - want| over the largest |want|, on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def lm_card_vs_cpu(torch, card: str) -> dict:
+    """qwen2-7b's smoke config (GQA, QKV bias) in float32, TF32 off, on the
+    card and on the CPU from the same weights and batch: the loss, every
+    gradient leaf, and the parameters, m and v after two
+    ``apply_updates`` from the CPU's gradients (a step from each device's
+    own gradients would differ by up to lr where a gradient is within its
+    summation noise of eps)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import tree as tr
+
+    cfg = get_config("qwen2-7b").smoke_config()
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for dev in ("cpu", LM_DEVICE):
+            params = tr.map_tree(lambda p: p.to(dev).requires_grad_(True),
+                                 host)
+            loss = tf.loss_fn(params, {k: v.to(dev) for k, v in
+                                       batch.items()}, cfg)
+            runs.append((params, loss.detach(), torch.autograd.grad(
+                loss, tr.leaves(params))))
+        cpu_grads = tr.unflatten_like(runs[0][0], runs[0][2])
+        updated = []
+        for params, _, _ in runs:
+            dev = tr.leaves(params)[0].device
+            grads = tr.map_tree(lambda g: g.to(dev), cpu_grads)
+            st = init_state(params)
+            for _ in range(2):
+                params, st, _ = apply_updates(params, grads, st, ocfg)
+            updated.append((params, st["m"], st["v"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"loss": _max_rel(torch, runs[1][1], runs[0][1]),
+           "grads": max(_max_rel(torch, a, b)
+                        for a, b in zip(runs[1][2], runs[0][2])),
+           "updated": max(_max_rel(torch, a, b) for a, b in
+                          zip(tr.leaves(updated[1]), tr.leaves(updated[0])))}
+    log(f"[{card}] card against CPU, qwen2-7b smoke, float32: max relative "
+        f"error loss {out['loss']:.3e}, gradients {out['grads']:.3e}, after "
+        f"2 updates {out['updated']:.3e} (limits {CARD_CPU_REL})")
+    for k, limit in CARD_CPU_REL.items():
+        if not out[k] <= limit:
+            raise AssertionError(f"card against CPU: {k} {out[k]} > {limit}")
+    return out
+
+
+def lm_elastic(torch, card: str) -> dict:
+    """``ElasticTrainer`` on the card at smoke size (qwen2-7b, B = 2,
+    T = 16): 6 steps uninterrupted, and 6 steps that crash after step 3
+    (``fail_at``) and resume from the step-2 checkpoint; the final state
+    must be equal."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_lm, make_step
+    from repro_torch.train import (AdamWConfig, ElasticConfig,
+                                   ElasticTrainer, SimulatedFailure,
+                                   init_state)
+    from repro_torch.train import tree as tr
+
+    args = SimpleNamespace(scale="smoke", batch=2, seq_len=16, seed=0)
+    _, init, loss, batch_fn = build_lm(get_config("qwen2-7b"), args,
+                                       torch.device(LM_DEVICE))
+    step = make_step(loss, AdamWConfig(lr=1e-2, warmup_steps=1,
+                                       total_steps=6))
+
+    def fresh():
+        params = init()
+        return {"params": params, "opt": init_state(params)}
+
+    def trainer(ckpt_dir):
+        return ElasticTrainer(
+            step_fn=step, make_batch=batch_fn, init_state=fresh,
+            cfg=ElasticConfig(checkpoint_dir=ckpt_dir, checkpoint_every=2),
+            get_step=lambda s: int(s["opt"]["step"]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = trainer(f"{tmp}/whole")
+        whole.start_or_resume()
+        whole.run(6)
+        first = trainer(f"{tmp}/crash")
+        first.start_or_resume()
+        try:
+            first.run(6, fail_at=3)
+            raise AssertionError("no simulated failure at step 3")
+        except SimulatedFailure as e:
+            crashed = e.step
+        second = trainer(f"{tmp}/crash")
+        resumed = second.start_or_resume()
+        second.run(6)
+    equal = all(torch.equal(a, b) for a, b in
+                zip(tr.leaves(second.state), tr.leaves(whole.state)))
+    out = {"crashed_at": crashed, "resumed_from": resumed["step"],
+           "final_step": int(second.state["opt"]["step"]),
+           "equal_to_uninterrupted": equal}
+    log(f"[{card}] elastic trainer on the card: {out}")
+    if not (equal and crashed == 3 and resumed == {"resumed": True,
+                                                     "step": 2}):
+        raise AssertionError(f"elastic resume: {out}")
+    return out
+
+
+def lm_path(torch, card: str) -> dict:
+    """The LM trainer path (no kernel of the port: its products are
+    torch.matmul / torch.einsum): qwen1.5-4b whole, deepseek-moe-16b at
+    full width and 2 layers, the card against the CPU, the elastic
+    trainer.  Launch counts are reset just before and read just after,
+    and must stay zero."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    reset_launch_counts()                # just before the LM path
+    result = {"card": card, "peak_source": BF16_PEAK_SOURCE}
+    for arch_id, n_layers, steps in LM_RUNS:
+        out, params, batch, cfg = lm_train(torch, card, arch_id, n_layers,
+                                           steps)
+        if cfg.is_moe:
+            out["dropped"] = moe_dropped(torch, params, batch["tokens"], cfg)
+            out["routed_per_layer"] = LM_BATCH * LM_SEQ * cfg.top_k
+            log(f"[{card}] {arch_id}: choices dropped at capacity per layer "
+                f"{out['dropped']} of {out['routed_per_layer']}")
+        else:
+            lm_checks(torch, card, params, batch, cfg, out)
+        result[arch_id] = out
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["card_vs_cpu"] = lm_card_vs_cpu(torch, card)
+    result["elastic"] = lm_elastic(torch, card)
+    launched = launch_counts()           # just after the LM path
+    if any(launched.values()):
+        raise AssertionError(f"the LM path launched kernels: {launched}")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[{card}] LM path {result['seconds']:.1f} s")
+    return result
+
+
 # ---------------------------------------------------------------- kernels
 def bound(name: str, args, kw):
     """(bytes, operations) the call must move / do on these inputs."""
@@ -1861,12 +2236,21 @@ def main() -> int:
                         capture.shapes, closure_info, dense_info,
                         sharded_info, spills)
 
+    # the graph paths' device tensors go before the LM path's 50-odd GB
+    del capture, last_r, closure_t, human_r, level
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{card}] device memory before the LM path: "
+        f"{torch.cuda.memory_allocated():,} B allocated")
+    lm = lm_path(torch, card)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     if leaked:
         raise AssertionError(f"imported modules outside the port: {leaked}")
     log(f"[{card}] total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": rows}))
     if spilled:
         raise AssertionError(f"ptxas reports spills in {spilled}")

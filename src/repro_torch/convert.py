@@ -1,17 +1,19 @@
 """Carry the reference's state across to the port.
 
-The system has no weights: its state is the data graph, the pattern
+The matcher has no weights: its state is the data graph, the pattern
 queries, the packed data graph of the whole-graph matcher and, on the
-resident path, the packed RIG matrix on the device.
+resident path, the packed RIG matrix on the device.  The LM substrate's
+state is its parameter tree and its AdamW state.
 These functions take plain numpy arrays and tuples (for example the
-fields of a reference ``DataGraph`` or the matrix its resident packing
-returns) and build the port's objects from them, without importing the
-reference package.
+fields of a reference ``DataGraph``, the matrix its resident packing
+returns, or a reference parameter tree passed through ``np.asarray``) and
+build the port's objects from them, without importing the reference
+package.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -19,6 +21,8 @@ import torch
 
 from .core.graph import DataGraph
 from .core.query import PatternQuery, QueryEdge
+from .models.transformer import LMConfig, param_shapes
+from .train import tree as tr
 from .torchgm.device_graph import DeviceGraph
 from .torchgm.frontier import ResidentIntersector, resolve
 
@@ -85,3 +89,43 @@ def device_graph_from_packed(n: int, n_pad: int, labels, adj, adj_t, reach,
                        labels=torch.from_numpy(labels).to(dev),
                        stack=stack.to(dev),
                        nbytes=labels.nbytes + stack.numel() * 4)
+
+
+def _leaf(arr, shape, dtype, device, name: str) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+    if arr.dtype.kind not in "iub":
+        arr = arr.astype(np.float32)     # bfloat16 (ml_dtypes) and friends
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
+                         device=None) -> Dict[str, Any]:
+    """The port's LM parameter tree from the reference's, leaves as numpy
+    arrays (``{"embed", "final_ln", "lm_head", "layers": {...}}``, stacked
+    layers), each checked against ``cfg``'s shape and cast to
+    ``cfg.dtype`` on ``device``."""
+    dev = resolve(device)
+    shapes = param_shapes(cfg)
+    if set(tree) != set(shapes) or set(tree["layers"]) != set(
+            shapes["layers"]):
+        raise ValueError(f"parameter tree keys differ from {cfg.name}'s")
+    out = {k: _leaf(tree[k], s, cfg.dtype, dev, k)
+           for k, s in sorted(shapes.items()) if k != "layers"}
+    out["layers"] = {k: _leaf(tree["layers"][k], s, cfg.dtype, dev,
+                              f"layers/{k}")
+                     for k, s in sorted(shapes["layers"].items())}
+    return out
+
+
+def adamw_state_from_numpy(state: Dict[str, Any], device=None
+                           ) -> Dict[str, Any]:
+    """The port's AdamW state (``repro_torch.train.optimizer``) from the
+    reference's, leaves as numpy arrays: ``step`` as an int32 scalar,
+    ``m`` and ``v`` as float32 trees of the parameters' shape."""
+    dev = resolve(device)
+    f32 = lambda a: _leaf(a, np.shape(a), torch.float32, dev, "m/v")  # noqa: E731
+    return {"step": _leaf(state["step"], (), torch.int32, dev, "step"),
+            "m": tr.map_tree(f32, state["m"]),
+            "v": tr.map_tree(f32, state["v"])}

@@ -645,3 +645,153 @@ def test_transpose_kernel_misaligned_and_rejects_overlap(cuda):
         transpose(flat[:n * w].view(n, w), out=flat[8:].view(n, w))
     with pytest.raises(ValueError, match="square"):
         transpose(words[:64])
+
+
+# ------------------------------------------------------------ LM trainer
+LM_ARCHS = ("yi-34b", "qwen1.5-4b", "qwen2-7b", "grok-1-314b",
+            "deepseek-moe-16b")
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rel(got, want, rel):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_smoke_step_on_card_equals_cpu(cuda, no_tf32, arch_id):
+    """float32 smoke config from the same weights and batch: loss, every
+    gradient leaf (1e-5 of the leaf's largest entry), then two
+    ``apply_updates`` from the CPU's gradients (parameters, m and v to
+    1e-6 of each leaf's largest entry; gradients near eps would make a
+    step from each device's own gradients differ by up to lr there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tr
+
+    cfg = get_config(arch_id).smoke_config()
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    ocfg = opt.AdamWConfig(lr=1e-2, warmup_steps=0)
+    runs = []
+    for dev in ("cpu", cuda):
+        params = tr.map_tree(lambda p: p.to(dev).requires_grad_(True), host)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss = tf.loss_fn(params, b, cfg)
+        grads = torch.autograd.grad(loss, tr.leaves(params))
+        runs.append((params, loss.detach(), grads))
+    (pc, lc, gc), (pg, lg, gg) = runs
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(gg, gc):
+        _rel(a, b, 1e-5)
+    host_grads = tr.unflatten_like(pc, gc)
+    states = []
+    for params in (pc, pg):
+        dev = tr.leaves(params)[0].device
+        g = tr.map_tree(lambda t: t.to(dev), host_grads)
+        st = opt.init_state(params)
+        for _ in range(2):
+            params, st, _ = opt.apply_updates(params, g, st, ocfg)
+        states.append((params, st["m"], st["v"]))
+    for a, b in zip(tr.leaves(states[1]), tr.leaves(states[0])):
+        _rel(a, b, 1e-6)
+
+
+@pytest.mark.cuda
+def test_lm_bf16_full_depth_forward_backward(cuda):
+    """qwen1.5-4b's depth (40 layers) and vocabulary at a narrow width, in
+    bf16 at B = 2, T = 1,024: finite loss near ln V + 0.5 and gradients;
+    with remat the peak holds one layer's activations, not 40."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as tr
+
+    base = dataclasses.replace(get_config("qwen1.5-4b").cfg, d_model=256,
+                               n_heads=2, n_kv=2, d_ff=512)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, base.vocab, (2, 1024))
+                                 .astype(np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    peaks = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = tf.TransformerLM(cfg, generator=torch.Generator(
+            cuda).manual_seed(0)).params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        loss = tf.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, tr.leaves(params))
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - start
+        assert math.log(cfg.vocab) < float(loss.detach()) \
+            < math.log(cfg.vocab) + 1
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        assert all(g.dtype == torch.bfloat16 for g in grads)
+        del params, grads, loss
+    assert peaks[True] < peaks[False], peaks
+
+
+@pytest.mark.cuda
+def test_adamw_in_place_equals_out_of_place_on_card(cuda, monkeypatch):
+    """The sliced in-place update against the reference's out-of-place
+    formula, on the card: float32 leaves to 1e-6 relative, bfloat16 leaves
+    to one bf16 step."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tr
+
+    monkeypatch.setattr(opt, "SLICE_ELEMS", 1000)     # several slices a leaf
+    gen = torch.Generator(cuda).manual_seed(0)
+    shapes = {"embed": (300, 64), "ln": (8, 64), "w": (8, 64, 96),
+              "v": (64,)}
+
+    def tree(dtype_w):
+        return {k: torch.randn(s, generator=gen, device=cuda).to(
+            dtype_w if k == "w" else torch.float32) for k, s in shapes.items()}
+
+    cfg = opt.AdamWConfig(lr=0.05, warmup_steps=1, weight_decay=0.1)
+    for dtype_w in (torch.float32, torch.bfloat16):
+        params = tree(dtype_w)
+        ref_p = tr.map_tree(torch.clone, params)
+        m = tr.map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
+        v = tr.map_tree(torch.clone, m)
+        st = opt.init_state(params)
+        for step in range(1, 4):
+            grads = tr.map_tree(lambda p: 3 * torch.randn(
+                p.shape, generator=gen, device=cuda).to(p.dtype), params)
+            params, st, metr = opt.apply_updates(params, grads, st, cfg)
+            # the reference's formula, out of place
+            gn = opt.global_norm(grads)
+            scale = torch.clamp(1.0 / torch.clamp(gn, min=1e-9), max=1.0)
+            lr = opt.schedule_lr(cfg, torch.tensor(step, device=cuda))
+            bc1, bc2 = 1 - 0.9 ** float(step), 1 - 0.95 ** float(step)
+            for k in shapes:
+                g = grads[k].float() * scale
+                m[k] = 0.9 * m[k] + (1 - 0.9) * g
+                v[k] = 0.95 * v[k] + (1 - 0.95) * torch.square(g)
+                delta = (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + cfg.eps)
+                delta = delta + 0.1 * float(ref_p[k].ndim >= 2) \
+                    * ref_p[k].float()
+                ref_p[k] = (ref_p[k].float() - lr * delta).to(ref_p[k].dtype)
+        for k in shapes:
+            rel = 2 ** -7 if params[k].dtype == torch.bfloat16 else 1e-6
+            _rel(params[k], ref_p[k], rel)
+            _rel(st["m"][k], m[k], 1e-6)
+            _rel(st["v"][k], v[k], 1e-6)

@@ -49,6 +49,11 @@ frontier.DEFAULT_DEVICE = "cpu"
 from repro_torch.core import GM, GMOptions, ENUM_METHODS
 import repro_torch.core.baselines, repro_torch.launch.mesh
 import repro_torch.torchgm.distributed
+import repro_torch.models.transformer, repro_torch.train, repro_torch.configs
+import repro_torch.launch.train
+from repro_torch.configs import get_config
+lm = get_config("qwen2-7b").smoke(seed=0, device="cpu")
+assert lm["finite"], lm
 from repro_torch.data.graphs import random_labeled_graph
 from repro_torch.data.queries import random_query_from_graph
 g = random_labeled_graph(50, avg_degree=2.5, n_labels=3, seed=1)
