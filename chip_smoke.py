@@ -125,8 +125,42 @@
    entry).  ``ElasticTrainer`` at smoke size on the card crashes after
    step 3 of 6 and resumes from its step-2 checkpoint; its final state
    must equal an uninterrupted run's.
-10. Prints the ``lm`` JSON line, the ``kernels`` JSON line, the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+10. GNN / DIN trainer path, after the LM path frees its tensors (float32,
+   TF32 off; it launches none of the kernels above: its products are
+   ``torch.matmul``, its scatters ``index_add``, its gathers
+   ``index_select``; the launch counts must stay zero).  Seven runs at the
+   published widths, random weights from a seeded generator, data from
+   the port's builders (seed 0), each AdamW step (the default
+   ``AdamWConfig`` but for ``total_steps``) through
+   ``launch.train.make_step``, fenced and timed: graphsage-reddit on
+   15-10 sampled batches of 1,024 seeds (``minibatch_lg``: a CSR graph of
+   232,965 nodes and 114,615,892 edges built on the host, the sampler run
+   every step), 4 steps; gin-tu over the whole of ``ogb_products`` (2,449,029
+   nodes, 61,859,140 edges), 3; schnet on 128 molecules (``molecule``), 4;
+   graphcast (16 layers, d 512) over the 166,400-node grid and
+   41,984-node mesh that ``_abstract_batch("minibatch_lg")`` gives, 3;
+   DIN at ``train_batch`` (65,536 examples), 4; DIN forward under
+   ``no_grad`` at ``serve_p99`` and ``serve_bulk`` and
+   ``retrieval_scores`` over 262,144 candidates (``retrieval_cand``'s
+   10^6 need about 90 GB unsharded: listed under ``reduced``).  Each run
+   prints its seconds a step (or a call), edges or examples a second,
+   ``model_flops`` of its shape against the 67 TFLOP/s FP32 peak of
+   NVIDIA's H100 SXM data sheet, its peak memory above what it found and
+   its host data seconds (and, sampled, the sampler's share of a step);
+   every loss and gradient norm must be finite.  The five smoke configs,
+   gin-tu at ``full_graph_sm`` (Cora's size, d_feat 1,433) and DIN at
+   ``serve_p99`` on the card against the CPU from the same weights: loss
+   within 1e-5 relative, every gradient leaf within 1e-5 of its largest
+   entry (DIN's attention MLP: or within 1e-6 of its gradient with the
+   scores' gradient in absolute value, see ``DIN_ATTN_REL``; the line
+   gives that scale over each attn_* leaf's own largest entry);
+   ``retrieval_scores`` against ``forward`` on 512 candidates within 1e-5;
+   and
+   ``launch.train.main --scale full --steps 3`` for gin-tu,
+   graphsage-reddit and din, each in a fresh checkpoint directory.
+11. Prints the ``lm`` JSON line, the ``gnn`` JSON line, the ``kernels``
+   JSON line, the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises and exits non-zero, as does a spill that ptxas
 reports in any instantiation of ``gather_intersect_kernel`` or
@@ -1340,11 +1374,12 @@ def moe_dropped(torch, params, tokens, cfg) -> list:
     return dropped
 
 
-def _max_rel(torch, got, want) -> float:
-    """max |got - want| over the largest |want|, on the CPU."""
+def _max_rel(torch, got, want, scale: float = 0.0) -> float:
+    """max |got - want| over the largest |want| (or ``scale``, if larger),
+    on the CPU."""
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
     return float((got - want).abs().max()) / max(
-        float(want.abs().max()), 1e-30)
+        float(want.abs().max()), scale, 1e-30)
 
 
 def lm_card_vs_cpu(torch, card: str) -> dict:
@@ -1493,6 +1528,419 @@ def lm_path(torch, card: str) -> dict:
         raise AssertionError(f"the LM path launched kernels: {launched}")
     result["seconds"] = time.perf_counter() - t0
     log(f"[{card}] LM path {result['seconds']:.1f} s")
+    return result
+
+
+# ------------------------------------------------------ GNN / DIN trainer
+# float32 outside the tensor cores (the phase runs with TF32 off): NVIDIA's
+# H100 SXM data sheet, dense, at the full 700 W power limit
+FP32_PEAK_FLOPS = 67e12
+FP32_PEAK_SOURCE = "NVIDIA H100 SXM data sheet, dense FP32, 67 TFLOP/s"
+GNN_DEVICE = "cuda"
+# (run, arch, shape, optimizer steps) of the training runs
+GNN_RUNS = (("sage_reddit_sampled", "graphsage-reddit", "minibatch_lg", 4),
+            ("gin_products_full", "gin-tu", "ogb_products", 3),
+            ("schnet_molecule", "schnet", "molecule", 4),
+            ("graphcast_mesh", "graphcast", "minibatch_lg", 3),
+            ("din_train", "din", "train_batch", 4))
+# runs whose batch is built and uploaded once, not every step
+WHOLE_BATCH_RUNS = ("gin_products_full", "graphcast_mesh")
+# DIN's 10^6 candidates need about 90 GB unsharded (the reference's dry
+# run shards them 16-32 ways): one card scores 262,144
+RETRIEVAL_CANDIDATES = 262_144
+SERVE_CALLS = 5
+# float32, TF32 off: the card against the CPU from the same weights
+GNN_CARD_CPU_REL = 1e-5
+DIN_ATTN_REL = 1e-6
+# DIN's attention MLP: the gradient of its scores sums to zero over each
+# history (the softmax is shift-invariant), so its leaves' gradients are
+# sums whose terms cancel (attn_b2's exactly: its gradient is zero) and a
+# float32 rounding of the scores' gradient shows there at 2e-5 of a leaf's
+# largest entry.  Each attn_* leaf is held within ``DIN_ATTN_REL`` (16
+# float32 ulps) of the largest entry of its gradient with the scores'
+# gradient taken in absolute value (the cancelling terms' magnitudes:
+# ``recsys.attention_grad_scales`` on the CPU), or within 1e-5 of its own,
+# whichever is larger.  Each DIN case's line gives, for each attn_* leaf,
+# that scale over the leaf's own largest entry and the card's error over
+# each.
+
+
+def gnn_run_batch(arch, run: str, shape: str, step: int, graph):
+    """(numpy batch, items) of one step of a training run from the port's
+    builders at the run's shape, seed 0: items are the batch's edges (a
+    GNN's; mesh + grid-to-mesh + mesh-to-grid for graphcast) or its
+    examples (DIN)."""
+    from repro_torch.data import gnn_data, recsys_data, sampler
+
+    cfg, sp = arch.cfg, arch.shapes[shape]
+    if arch.family == "recsys":
+        return recsys_data.din_batch(
+            sp["batch"], cfg.seq_len, cfg.n_items, cfg.n_cates,
+            cfg.n_user_feats, cfg.user_feat_vocab, step=step,
+            seed=0), sp["batch"]
+    if run == "sage_reddit_sampled":
+        b = sampler.sampled_batch(graph, sp["batch_nodes"], sp["fanout"],
+                                  step, seed=0)
+        sink = len(b["node_mask"]) - 1      # padded edges are sink -> sink
+        return b, int((b["edge_src"] != sink).sum())
+    if run == "schnet_molecule":
+        b = gnn_data.schnet_batch(sp["n_nodes"], sp["n_edges"],
+                                  sp["d_feat"], batch=sp["batch"], seed=step)
+        return b, len(b["edge_src"])
+    if run == "graphcast_mesh":
+        ab, _ = arch._abstract_batch(shape)
+        ng, nm = ab["node_feat"].shape[0], ab["mesh_feat"].shape[0]
+        ne = ab["mesh_src"].shape[0]
+        return gnn_data.graphcast_batch(ng, nm, cfg.n_vars, ne, ne, ne,
+                                        seed=0), 3 * ne
+    return gnn_data.full_graph_batch(sp["n_nodes"], sp["n_edges"],
+                                     sp["d_feat"], cfg.n_classes,
+                                     seed=0), sp["n_edges"]
+
+
+def gnn_train(torch, card: str, run: str, arch_id: str, shape: str,
+              steps: int) -> dict:
+    """``steps`` AdamW steps (the default ``AdamWConfig`` but for
+    ``total_steps``) of one GNN or DIN arch at its published width and the
+    run's shape, float32, random weights from a seeded generator, through
+    ``launch.train.make_step``; each step fenced and timed.  The batch is
+    built and uploaded once (a whole graph, the mesh) or every step
+    (sampled batches, molecules, click logs), its host seconds kept apart
+    from the step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import batch_to
+    from repro_torch.data import sampler
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import gnn, recsys
+    from repro_torch.train import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import tree as tr
+
+    arch = get_config(arch_id)
+    sp = arch.shapes[shape]
+    if arch.family == "gnn":
+        cfg, mod, model = arch._shape_cfg(sp), gnn, gnn.GNN
+    else:
+        cfg, mod, model = arch.cfg, recsys, recsys.DIN
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what the run found allocated
+    flops = arch.model_flops(shape)
+    out = {"arch": arch_id, "shape": shape, "model_flops_per_step": flops,
+           "items": "edges" if arch.family == "gnn" else "examples",
+           "items_per_step": [], "data_s": [], "upload_s": [], "step_s": [],
+           "items_per_s": [],
+           "model_flops_per_s": [], "fp32_peak_share": [], "loss": [],
+           "grad_norm": []}
+    graph = None
+    if run == "sage_reddit_sampled":
+        t0 = time.perf_counter()
+        graph = sampler.random_csr_graph(
+            sp["n_nodes"], avg_deg=sp["n_edges"] / sp["n_nodes"],
+            d_feat=sp["d_feat"], n_classes=cfg.n_classes, seed=0)
+        out["graph_build_s"] = time.perf_counter() - t0
+        out["graph_edges"] = int(graph.indptr[-1])
+        log(f"[{card}] {run}: CSR graph of {graph.n:,} nodes and "
+            f"{out['graph_edges']:,} edges built on the host in "
+            f"{out['graph_build_s']:.2f} s")
+    params = model(cfg, generator=torch.Generator(GNN_DEVICE)
+                   .manual_seed(0)).params
+    out["n_params"] = sum(p.numel() for p in tr.leaves(params))
+    state = {"params": params, "opt": init_state(params)}
+    ocfg = AdamWConfig(total_steps=steps)
+    step = make_step(lambda p, b: mod.loss_fn(p, b, cfg), ocfg)
+    for i in range(steps):
+        if i == 0 or run not in WHOLE_BATCH_RUNS:
+            t0 = time.perf_counter()
+            np_batch, items = gnn_run_batch(arch, run, shape, i, graph)
+            t1 = time.perf_counter()
+            batch = batch_to(np_batch, GNN_DEVICE)
+            torch.cuda.synchronize()
+            out["data_s"].append(t1 - t0)
+            out["upload_s"].append(time.perf_counter() - t1)
+            del np_batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["step_s"].append(dt)
+        out["items_per_step"].append(items)
+        out["items_per_s"].append(items / dt)
+        out["model_flops_per_s"].append(flops / dt)
+        out["fp32_peak_share"].append(flops / dt / FP32_PEAK_FLOPS)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        log(f"[{card}] {run} step {i}: {dt:.4f} s, {items / dt:,.0f} "
+            f"{out['items']}/s, "
+            f"{flops / dt / 1e12:.3f} model TFLOP/s "
+            f"({100 * flops / dt / FP32_PEAK_FLOPS:.2f}% of the FP32 "
+            f"peak), loss {out['loss'][-1]:.4f}, grad_norm "
+            f"{out['grad_norm'][-1]:.4f}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["found_allocated_bytes"] = base
+    # where a step's time goes: one step more on the last batch, its
+    # forward + backward and its update fenced and timed apart
+    params = state["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = mod.loss_fn(params, batch, cfg)
+    grads = tr.unflatten_like(params, torch.autograd.grad(
+        loss, tr.leaves(params), materialize_grads=True))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    apply_updates(params, grads, state["opt"], ocfg)
+    torch.cuda.synchronize()
+    out["split_s"] = {"forward_backward": t1 - t0,
+                      "update": time.perf_counter() - t1}
+    del loss, grads
+    if graph is not None:
+        # the sampler's share of a step: host sampling over sampling,
+        # upload and the device step
+        whole = [d + u + s for d, u, s in
+                 zip(out["data_s"], out["upload_s"], out["step_s"])]
+        out["sampler_share"] = [d / w for d, w in zip(out["data_s"], whole)]
+        out["edges_per_s_with_sampler"] = [
+            n / w for n, w in zip(out["items_per_step"], whole)]
+    log(f"[{card}] {run}: {out['n_params']:,} parameters, peak memory "
+        f"{out['peak_bytes']:,} B above the {base:,} B found allocated; a "
+        f"further step split: forward + backward "
+        f"{out['split_s']['forward_backward']:.4f} s, update "
+        f"{out['split_s']['update']:.4f} s; "
+        f"host data seconds {[round(s, 4) for s in out['data_s']]}, upload "
+        f"{[round(s, 4) for s in out['upload_s']]}"
+        + (f", sampler share {[round(s, 4) for s in out['sampler_share']]}"
+           if graph is not None else ""))
+    bad = [v for v in out["loss"] + out["grad_norm"] if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{run}: non-finite loss or grad_norm {bad}")
+    return out
+
+
+def din_serve(torch, card: str) -> dict:
+    """DIN at its published width, random weights: forward under
+    ``no_grad`` at ``serve_p99`` (512) and ``serve_bulk`` (262,144)
+    examples and ``retrieval_scores`` over ``RETRIEVAL_CANDIDATES``
+    candidates, each called ``SERVE_CALLS`` times, fenced and timed; then
+    ``retrieval_scores`` against ``forward`` on 512 candidates with the
+    user's history repeated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import batch_to
+    from repro_torch.data import recsys_data
+    from repro_torch.models import recsys
+
+    arch = get_config("din")
+    cfg = arch.cfg
+    params = recsys.DIN(cfg, generator=torch.Generator(GNN_DEVICE)
+                        .manual_seed(0)).params
+    common = (cfg.seq_len, cfg.n_items, cfg.n_cates, cfg.n_user_feats,
+              cfg.user_feat_vocab)
+    cases = [(shape, arch.shapes[shape]["batch"], shape)
+             for shape in ("serve_p99", "serve_bulk")]
+    cases.append(("retrieval_cand", RETRIEVAL_CANDIDATES,
+                  dict(kind="retrieval", batch=1,
+                       n_candidates=RETRIEVAL_CANDIDATES)))
+    out = {}
+    with torch.no_grad():
+        for name, n, shape in cases:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if name == "retrieval_cand":
+                np_batch = recsys_data.retrieval_batch(*common,
+                                                       n_candidates=n,
+                                                       seed=0)
+                fn = recsys.retrieval_scores
+            else:
+                np_batch = recsys_data.din_batch(n, *common, step=0, seed=0)
+                fn = recsys.forward
+            data_s = time.perf_counter() - t0
+            batch = batch_to(np_batch, GNN_DEVICE)
+            flops = arch.model_flops(shape)
+            call_s = []
+            for _ in range(SERVE_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scores = fn(params, batch, cfg)
+                torch.cuda.synchronize()
+                call_s.append(time.perf_counter() - t0)
+            if scores.shape != (n,) or not bool(torch.isfinite(scores).all()):
+                raise AssertionError(f"din {name}: scores of shape "
+                                     f"{tuple(scores.shape)}, finite "
+                                     f"{bool(torch.isfinite(scores).all())}")
+            out[name] = {
+                "examples": n, "data_s": data_s, "call_s": call_s,
+                "examples_per_s": [n / s for s in call_s],
+                "model_flops_per_call": flops,
+                "fp32_peak_share": [flops / s / FP32_PEAK_FLOPS
+                                    for s in call_s],
+                "peak_bytes": torch.cuda.max_memory_allocated() - base}
+            log(f"[{card}] din {name}: {n:,} examples, calls "
+                f"{[round(s, 5) for s in call_s]} s, "
+                f"{n / min(call_s):,.0f} examples/s at best, "
+                f"{100 * flops / min(call_s) / FP32_PEAK_FLOPS:.2f}% of the "
+                f"FP32 peak, peak memory {out[name]['peak_bytes']:,} B")
+            del batch, scores
+        out["retrieval_cand"]["reduced"] = {
+            "n_candidates": [arch.shapes["retrieval_cand"]["n_candidates"],
+                             RETRIEVAL_CANDIDATES],
+            "why": "10^6 candidates need about 90 GB unsharded; the "
+                   "reference's dry run shards them 16-32 ways"}
+        rb = batch_to(recsys_data.retrieval_batch(*common, n_candidates=512,
+                                                  seed=1), GNN_DEVICE)
+        scores = recsys.retrieval_scores(params, rb, cfg)
+        as_batch = {"item_id": rb["cand_items"], "cate_id": rb["cand_cates"],
+                    **{k: rb[k].expand(512, -1) for k in
+                       ("hist_items", "hist_cates", "hist_mask",
+                        "user_feats")}}
+        err = _max_rel(torch, scores, recsys.forward(params, as_batch, cfg))
+    out["retrieval_vs_forward"] = err
+    log(f"[{card}] din retrieval_scores against forward on 512 candidates: "
+        f"max relative error {err:.3e} (limit {GNN_CARD_CPU_REL})")
+    if not err <= GNN_CARD_CPU_REL:
+        raise AssertionError(f"retrieval_scores against forward: {err}")
+    return out
+
+
+def _grads_on(torch, mod, cfg, host, np_batch, device):
+    """(loss, {path: gradient}) of one forward and backward on
+    ``device``."""
+    from repro_torch.configs.base import batch_to
+    from repro_torch.train import tree as tr
+
+    params = tr.map_tree(lambda p: p.to(device).requires_grad_(True), host)
+    loss = mod.loss_fn(params, batch_to(np_batch, device), cfg)
+    grads = torch.autograd.grad(loss, tr.leaves(params),
+                                materialize_grads=True)
+    return loss.detach(), dict(zip(tr.to_dict(params), grads))
+
+
+def gnn_card_vs_cpu(torch, card: str) -> dict:
+    """Each of the five smoke configs, ``gin-tu`` at ``full_graph_sm``
+    (Cora's 2,708 nodes and 10,556 edges, d_feat 1,433) and ``din`` at
+    ``serve_p99`` (512 examples, the whole 10^6-row table), float32 with
+    TF32 off, on the card and on the CPU from the same weights and batch:
+    the loss within 1e-5 relative, every gradient leaf within 1e-5 of its
+    largest entry (DIN's attention MLP: see ``GNN_CARD_CPU_REL``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import batch_to
+    from repro_torch.data import gnn_data, recsys_data
+    from repro_torch.models import gnn, recsys
+
+    cases = []
+    for arch_id in ("gin-tu", "graphsage-reddit", "schnet", "graphcast",
+                    "din"):
+        arch = get_config(arch_id)
+        cfg = arch.smoke_config()
+        if arch.family == "gnn":
+            cases.append((f"{arch_id} smoke", gnn, cfg,
+                          arch.smoke_batch(seed=1)))
+        else:
+            cases.append((f"{arch_id} smoke", recsys, cfg,
+                          recsys_data.din_batch(
+                              8, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                              cfg.n_user_feats, cfg.user_feat_vocab,
+                              step=0, seed=1)))
+    gin = get_config("gin-tu")
+    sp = gin.shapes["full_graph_sm"]
+    cases.append(("gin-tu full_graph_sm", gnn, gin._shape_cfg(sp),
+                  gnn_data.full_graph_batch(sp["n_nodes"], sp["n_edges"],
+                                            sp["d_feat"], seed=0)))
+    din = get_config("din").cfg
+    cases.append(("din serve_p99", recsys, din, recsys_data.din_batch(
+        get_config("din").shapes["serve_p99"]["batch"], din.seq_len,
+        din.n_items, din.n_cates, din.n_user_feats, din.user_feat_vocab,
+        step=0, seed=0)))
+    out = {}
+    for name, mod, cfg, np_batch in cases:
+        host = mod.init_params(cfg, torch.Generator().manual_seed(0))
+        l_cpu, g_cpu = _grads_on(torch, mod, cfg, host, np_batch, "cpu")
+        l_card, g_card = _grads_on(torch, mod, cfg, host, np_batch,
+                                   GNN_DEVICE)
+        scales = {} if mod is not recsys else recsys.attention_grad_scales(
+            host, batch_to(np_batch, "cpu"), cfg)
+        res = {"loss": _max_rel(torch, l_card, l_cpu),
+               "grads": max(_max_rel(torch, g_card[k], g_cpu[k],
+                                     scales.get(k, 0.0) * DIN_ATTN_REL
+                                     / GNN_CARD_CPU_REL) for k in g_cpu)}
+        if scales:
+            res["attn"] = {k: {
+                "scale_over_own": v / max(float(g_cpu[k].abs().max()),
+                                          1e-30),
+                "err_over_own": _max_rel(torch, g_card[k], g_cpu[k]),
+                "err_over_scale": _max_rel(torch, g_card[k], g_cpu[k], v)}
+                for k, v in scales.items()}
+        out[name] = res
+        log(f"[{card}] card against CPU, {name}, float32: max relative "
+            f"error {json.dumps(res)} (limit {GNN_CARD_CPU_REL})")
+        bad = {k: res[k] for k in ("loss", "grads")
+               if not res[k] <= GNN_CARD_CPU_REL}
+        if bad:
+            raise AssertionError(f"card against CPU, {name}: {bad}")
+    return out
+
+
+def gnn_launcher(torch, card: str) -> dict:
+    """``launch.train.main`` on the card at ``--scale full`` for 3 steps,
+    for the three archs the reference's launcher trains (``schnet`` and
+    ``graphcast`` fail there with a ``KeyError``: its sampled batches
+    carry no geometry), each in a fresh checkpoint directory."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as launch
+
+    out = {}
+    for arch_id in ("gin-tu", "graphsage-reddit", "din"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf):
+            launch.main(["--arch", arch_id, "--scale", "full", "--steps",
+                         "3", "--ckpt-dir", tmp])
+        text = buf.getvalue()
+        out[arch_id] = {"seconds": time.perf_counter() - t0,
+                        "log": text.strip().splitlines()}
+        log(f"[{card}] launch.train --arch {arch_id} --scale full --steps 3:"
+            f" {out[arch_id]['seconds']:.2f} s; "
+            + " | ".join(out[arch_id]["log"]))
+        if "device=cuda" not in text or "done: step=3" not in text:
+            raise AssertionError(f"launch.train {arch_id}: {text}")
+    return out
+
+
+def gnn_path(torch, card: str) -> dict:
+    """The GNN and DIN trainer path (no kernel of the port: its products
+    are torch.matmul, its scatters index_add, its gathers index_select):
+    the seven runs, the card against the CPU, the launcher.  TF32 is off
+    for the whole phase (float32 throughout); launch counts are reset
+    just before and read just after, and must stay zero."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()                # just before the GNN / DIN path
+    result = {"card": card, "peak_source": FP32_PEAK_SOURCE, "runs": {}}
+    try:
+        for run, arch_id, shape, steps in GNN_RUNS:
+            result["runs"][run] = gnn_train(torch, card, run, arch_id,
+                                            shape, steps)
+            gc.collect()
+            torch.cuda.empty_cache()
+        result["runs"]["din_serve"] = din_serve(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["card_vs_cpu"] = gnn_card_vs_cpu(torch, card)
+        result["launcher"] = gnn_launcher(torch, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launched = launch_counts()           # just after the GNN / DIN path
+    result["launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"the GNN / DIN path launched kernels: "
+                             f"{launched}")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[{card}] GNN / DIN path {result['seconds']:.1f} s")
     return result
 
 
@@ -2243,6 +2691,11 @@ def main() -> int:
     log(f"[{card}] device memory before the LM path: "
         f"{torch.cuda.memory_allocated():,} B allocated")
     lm = lm_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{card}] device memory before the GNN / DIN path: "
+        f"{torch.cuda.memory_allocated():,} B allocated")
+    gnn = gnn_path(torch, card)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2251,6 +2704,7 @@ def main() -> int:
         raise AssertionError(f"imported modules outside the port: {leaked}")
     log(f"[{card}] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"gnn": gnn}))
     print(json.dumps({"kernels": rows}))
     if spilled:
         raise AssertionError(f"ptxas reports spills in {spilled}")

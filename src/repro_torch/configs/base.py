@@ -1,5 +1,5 @@
 """Architecture config framework: one object per assigned architecture
-(the LM family).
+(the LM, GNN and recsys families).
 
 Every arch exposes:
 
@@ -7,7 +7,11 @@ Every arch exposes:
 * ``smoke_*``        — a REDUCED same-family config + one real forward/train
                        step (tests and ``launch.train --scale smoke``);
 * ``model_flops``    — the analytic MODEL_FLOPS (6·N·D dense /
-                       6·N_active·D MoE for training).
+                       6·N_active·D MoE for training; per-family formulas
+                       for GNN/recsys).
+
+GNN and recsys archs also give ``_abstract_batch(shape)``: the batch a
+shape implies, as ``meta`` tensors (shapes and dtypes, no storage).
 """
 
 from __future__ import annotations
@@ -18,11 +22,41 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from ..models import gnn as gnn_mod
+from ..models import recsys as din_mod
 from ..models import transformer as tf_mod
 from ..torchgm.frontier import resolve
 from ..train import optimizer as opt_mod
 
 OPT = opt_mod.AdamWConfig()
+Shape = Union[str, Dict[str, Any]]
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _pad512(n: int) -> int:
+    """Pad a node/edge count up to a multiple of 512 so the leading dim
+    shards evenly on every production mesh (the real loaders pad batches
+    the same way; masks neutralize the padding)."""
+    return int(-(-n // 512) * 512)
+
+
+def batch_to(batch: Dict[str, np.ndarray],
+             device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``, dtypes kept."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _train_step_finite(loss_fn, params, batch) -> Dict[str, Any]:
+    """One ``make_train_step`` step of ``OPT``: its loss, its gradient
+    norm and whether both are finite."""
+    step = opt_mod.make_train_step(loss_fn, OPT)
+    _, _, m = step(params, opt_mod.init_state(params), batch)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "finite": bool(torch.isfinite(m["loss"]))
+            and bool(torch.isfinite(m["grad_norm"]))}
 
 
 class ArchConfig:
@@ -77,20 +111,15 @@ class LMArch(ArchConfig):
         batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)),
                                     dtype=torch.int32, device=device)
                  for k in ("tokens", "labels")}
-        step = opt_mod.make_train_step(
-            lambda p, b: tf_mod.loss_fn(p, b, cfg), OPT)
         with torch.no_grad():
             logits = tf_mod.forward(params, batch["tokens"], cfg)
             cache = tf_mod.init_cache(cfg, 2, 32, device)
             dec_logits, cache = tf_mod.decode_step(
                 params, cache, batch["tokens"][:, :1], cfg)
-        params, _, m = step(params, opt_mod.init_state(params), batch)
-        return {"loss": float(m["loss"]),
-                "logits_shape": tuple(logits.shape),
+        return {"logits_shape": tuple(logits.shape),
                 "decode_shape": tuple(dec_logits.shape),
-                "grad_norm": float(m["grad_norm"]),
-                "finite": bool(torch.isfinite(m["loss"]))
-                and bool(torch.isfinite(m["grad_norm"]))}
+                **_train_step_finite(
+                    lambda p, b: tf_mod.loss_fn(p, b, cfg), params, batch)}
 
     def model_flops(self, shape: Union[str, Dict[str, Any]]) -> float:
         """``shape``: a name of ``shapes`` or a dict of the same keys
@@ -108,3 +137,228 @@ class LMArch(ArchConfig):
         attn = (2 * 2 * c.n_layers * sp["seq_len"] * c.n_kv * c.head_dim
                 * (c.n_heads // c.n_kv))
         return sp["global_batch"] * (2.0 * n_active + attn)
+
+
+# ==================================================================== GNN ===
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n_nodes=2708, n_edges=10556,
+                          d_feat=1433),
+    "minibatch_lg": dict(kind="train_sampled", n_nodes=232965,
+                         n_edges=114615892, batch_nodes=1024,
+                         fanout=(15, 10), d_feat=602),
+    "ogb_products": dict(kind="train", n_nodes=2449029, n_edges=61859140,
+                         d_feat=100),
+    "molecule": dict(kind="train_batched", n_nodes=30, n_edges=64, batch=128,
+                     d_feat=16),
+}
+
+
+class GNNArch(ArchConfig):
+    family = "gnn"
+    shapes = GNN_SHAPES
+
+    def __init__(self, cfg: gnn_mod.GNNConfig):
+        self.cfg = cfg
+        self.arch_id = cfg.name
+
+    def _shape_cfg(self, sp) -> gnn_mod.GNNConfig:
+        return dataclasses.replace(self.cfg, d_feat=sp["d_feat"])
+
+    def smoke_config(self) -> gnn_mod.GNNConfig:
+        return dataclasses.replace(self.cfg, n_layers=2, d_hidden=16,
+                                   d_feat=8, n_rbf=16, n_vars=6, n_classes=4)
+
+    def smoke_batch(self, seed: int = 0) -> Dict[str, np.ndarray]:
+        """The reference smoke's numpy batch for this arch."""
+        from ..data import gnn_data
+        cfg = self.smoke_config()
+        if cfg.arch == "schnet":
+            return gnn_data.schnet_batch(10, 24, cfg.d_feat, batch=3,
+                                         seed=seed)
+        if cfg.arch == "graphcast":
+            return gnn_data.graphcast_batch(24, 8, cfg.n_vars, 32, 24, 24,
+                                            seed=seed)
+        return gnn_data.full_graph_batch(24, 60, cfg.d_feat, cfg.n_classes,
+                                         seed=seed)
+
+    def smoke(self, seed: int = 0, device=None) -> Dict[str, Any]:
+        """One reduced AdamW step on ``device`` (the card unless the CPU
+        is asked for)."""
+        device = resolve(device)
+        cfg = self.smoke_config()
+        params = gnn_mod.GNN(cfg, generator=torch.Generator(
+            device).manual_seed(seed)).params
+        batch = batch_to(self.smoke_batch(seed), device)
+        with torch.no_grad():
+            out = gnn_mod.forward(params, batch, cfg)
+        return {"out_shape": tuple(out.shape), **_train_step_finite(
+            lambda p, b: gnn_mod.loss_fn(p, b, cfg), params, batch)}
+
+    def _abstract_batch(self, shape: Shape):
+        """(batch of ``meta`` tensors, cfg) that ``shape`` implies."""
+        sp = self.shapes[shape] if isinstance(shape, str) else shape
+        cfg = self._shape_cfg(sp)
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        if self.cfg.arch == "graphcast":
+            ng = sp.get("n_nodes", 1024)
+            if sp["kind"] == "train_batched":
+                ng = sp["n_nodes"] * sp["batch"]
+            ne = sp["n_edges"] * sp.get("batch", 1)
+            if sp["kind"] == "train_sampled":
+                ng, ne = 166_000, 166_000
+            ng, ne = _pad512(ng), _pad512(ne)
+            nm = _pad512(max(ng // 4, 512))
+            return {
+                "node_feat": _meta((ng, cfg.n_vars), f32),
+                "mesh_feat": _meta((nm, 3), f32),
+                "g2m_src": _meta((ne,), i32), "g2m_dst": _meta((ne,), i32),
+                "g2m_feat": _meta((ne, 4), f32),
+                "mesh_src": _meta((ne,), i32), "mesh_dst": _meta((ne,), i32),
+                "mesh_efeat": _meta((ne, 4), f32),
+                "m2g_src": _meta((ne,), i32), "m2g_dst": _meta((ne,), i32),
+                "m2g_feat": _meta((ne, 4), f32),
+                "node_mask": _meta((ng,), b8),
+                "labels": _meta((ng, cfg.n_vars), f32),
+            }, cfg
+        if sp["kind"] == "train_batched":      # molecule
+            n = _pad512(sp["n_nodes"] * sp["batch"])
+            e = _pad512(sp["n_edges"] * sp["batch"])
+            batch = {
+                "node_feat": _meta((n, sp["d_feat"]), f32),
+                "edge_src": _meta((e,), i32), "edge_dst": _meta((e,), i32),
+                "node_mask": _meta((n,), b8),
+                "graph_ids": _meta((n,), i32),
+            }
+            if self.cfg.arch == "schnet":
+                batch["edge_feat"] = _meta((e, 1), f32)
+                batch["graph_targets"] = _meta((sp["batch"],), f32)
+            else:
+                batch["graph_labels"] = _meta((sp["batch"],), i32)
+            return batch, cfg
+        if sp["kind"] == "train_sampled":
+            pad_nodes = _pad512(sp["batch_nodes"]
+                                * (1 + sp["fanout"][0]
+                                   + sp["fanout"][0] * sp["fanout"][1]))
+            n = e = pad_nodes
+        else:                                  # full graph
+            n, e = _pad512(sp["n_nodes"]), _pad512(sp["n_edges"])
+        batch = {
+            "node_feat": _meta((n, sp["d_feat"]), f32),
+            "edge_src": _meta((e,), i32), "edge_dst": _meta((e,), i32),
+            "labels": _meta((n,), i32),
+            "node_mask": _meta((n,), b8),
+            "train_mask": _meta((n,), b8),
+        }
+        if self.cfg.arch == "schnet":
+            batch["edge_feat"] = _meta((e, 1), f32)
+            batch.pop("labels")
+        return batch, cfg
+
+    def model_flops(self, shape: Shape) -> float:
+        """``shape``: a name of ``shapes`` or a dict of the same keys."""
+        batch, cfg = self._abstract_batch(shape)
+        d = cfg.d_hidden
+        if cfg.arch == "graphcast":
+            ne = batch["mesh_src"].shape[0]
+            ng = batch["node_feat"].shape[0]
+            per_edge = 2 * (2 * d + 4) * d + 2 * d * d
+            per_node = 2 * (2 * d) * d + 2 * d * d
+            fwd = cfg.n_layers * (ne * per_edge
+                                  + batch["mesh_feat"].shape[0] * per_node) \
+                + ng * 2 * cfg.n_vars * d * 2
+            return 3 * fwd
+        n = batch["node_feat"].shape[0]
+        e = batch["edge_src"].shape[0]
+        per_layer = n * (2 * d * d * 2) + e * d * 2
+        if cfg.arch == "schnet":
+            per_layer += e * (2 * cfg.n_rbf * d + 2 * d * d)
+        fwd = cfg.n_layers * per_layer \
+            + n * 2 * batch["node_feat"].shape[1] * d
+        return 3 * fwd                       # fwd + bwd ≈ 3x fwd
+
+
+# ================================================================= recsys ===
+DIN_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
+}
+
+
+class DINArch(ArchConfig):
+    family = "recsys"
+    shapes = DIN_SHAPES
+
+    def __init__(self, cfg: din_mod.DINConfig):
+        self.cfg = cfg
+        self.arch_id = cfg.name
+
+    def smoke_config(self) -> din_mod.DINConfig:
+        return dataclasses.replace(self.cfg, n_items=1000, n_cates=50,
+                                   seq_len=12, user_feat_vocab=40)
+
+    def smoke(self, seed: int = 0, device=None) -> Dict[str, Any]:
+        """One reduced AdamW step and a retrieval over 64 candidates on
+        ``device`` (the card unless the CPU is asked for)."""
+        from ..data import recsys_data
+        device = resolve(device)
+        cfg = self.smoke_config()
+        params = din_mod.DIN(cfg, generator=torch.Generator(
+            device).manual_seed(seed)).params
+        batch = batch_to(recsys_data.din_batch(
+            8, cfg.seq_len, cfg.n_items, cfg.n_cates, cfg.n_user_feats,
+            cfg.user_feat_vocab, step=0, seed=seed), device)
+        rb = batch_to(recsys_data.retrieval_batch(
+            cfg.seq_len, cfg.n_items, cfg.n_cates, cfg.n_user_feats,
+            cfg.user_feat_vocab, n_candidates=64, seed=seed), device)
+        with torch.no_grad():
+            scores = din_mod.retrieval_scores(params, rb, cfg)
+        out = _train_step_finite(lambda p, b: din_mod.loss_fn(p, b, cfg),
+                                 params, batch)
+        out["finite"] = out["finite"] and bool(torch.isfinite(scores).all())
+        return {"scores_shape": tuple(scores.shape), **out}
+
+    def _abstract_batch(self, shape: Shape):
+        """The batch of ``meta`` tensors that ``shape`` implies."""
+        sp = self.shapes[shape] if isinstance(shape, str) else shape
+        cfg = self.cfg
+        i32, f32 = torch.int32, torch.float32
+        if sp["kind"] == "retrieval":
+            c = sp["n_candidates"]
+            return {
+                "hist_items": _meta((1, cfg.seq_len), i32),
+                "hist_cates": _meta((1, cfg.seq_len), i32),
+                "hist_mask": _meta((1, cfg.seq_len), f32),
+                "user_feats": _meta((1, cfg.n_user_feats), i32),
+                "cand_items": _meta((c,), i32),
+                "cand_cates": _meta((c,), i32),
+            }
+        b = sp["batch"]
+        batch = {
+            "item_id": _meta((b,), i32), "cate_id": _meta((b,), i32),
+            "hist_items": _meta((b, cfg.seq_len), i32),
+            "hist_cates": _meta((b, cfg.seq_len), i32),
+            "hist_mask": _meta((b, cfg.seq_len), f32),
+            "user_feats": _meta((b, cfg.n_user_feats), i32),
+        }
+        if sp["kind"] == "train":
+            batch["label"] = _meta((b,), f32)
+        return batch
+
+    def model_flops(self, shape: Shape) -> float:
+        """``shape``: a name of ``shapes`` or a dict of the same keys."""
+        sp = self.shapes[shape] if isinstance(shape, str) else shape
+        cfg = self.cfg
+        d = cfg.embed_dim
+        pair = 2 * d
+        attn_in = 4 * pair
+        attn = attn_in * cfg.attn_mlp[0] + cfg.attn_mlp[0] * cfg.attn_mlp[1] \
+            + cfg.attn_mlp[1]
+        d_in = cfg.n_user_feats * d + 3 * pair
+        mlp = d_in * cfg.mlp[0] + cfg.mlp[0] * cfg.mlp[1] + cfg.mlp[1]
+        per_ex = 2 * (cfg.seq_len * attn + mlp)
+        if sp["kind"] == "retrieval":
+            return sp["n_candidates"] * per_ex
+        mult = 3 if sp["kind"] == "train" else 1
+        return mult * sp["batch"] * per_ex

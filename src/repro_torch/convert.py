@@ -2,8 +2,9 @@
 
 The matcher has no weights: its state is the data graph, the pattern
 queries, the packed data graph of the whole-graph matcher and, on the
-resident path, the packed RIG matrix on the device.  The LM substrate's
-state is its parameter tree and its AdamW state.
+resident path, the packed RIG matrix on the device.  The model
+substrate's state (LM, GNN, DIN) is its parameter tree and its AdamW
+state.
 These functions take plain numpy arrays and tuples (for example the
 fields of a reference ``DataGraph``, the matrix its resident packing
 returns, or a reference parameter tree passed through ``np.asarray``) and
@@ -21,7 +22,8 @@ import torch
 
 from .core.graph import DataGraph
 from .core.query import PatternQuery, QueryEdge
-from .models.transformer import LMConfig, param_shapes
+from .models import gnn, recsys
+from .models import transformer as tf
 from .train import tree as tr
 from .torchgm.device_graph import DeviceGraph
 from .torchgm.frontier import ResidentIntersector, resolve
@@ -100,23 +102,32 @@ def _leaf(arr, shape, dtype, device, name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
-                         device=None) -> Dict[str, Any]:
-    """The port's LM parameter tree from the reference's, leaves as numpy
-    arrays (``{"embed", "final_ln", "lm_head", "layers": {...}}``, stacked
-    layers), each checked against ``cfg``'s shape and cast to
-    ``cfg.dtype`` on ``device``."""
-    dev = resolve(device)
-    shapes = param_shapes(cfg)
-    if set(tree) != set(shapes) or set(tree["layers"]) != set(
-            shapes["layers"]):
-        raise ValueError(f"parameter tree keys differ from {cfg.name}'s")
-    out = {k: _leaf(tree[k], s, cfg.dtype, dev, k)
-           for k, s in sorted(shapes.items()) if k != "layers"}
-    out["layers"] = {k: _leaf(tree["layers"][k], s, cfg.dtype, dev,
-                              f"layers/{k}")
-                     for k, s in sorted(shapes["layers"].items())}
-    return out
+def _tree(tree: Dict[str, Any], shapes: Dict[str, Any], dtype, device,
+          name: str, path: str = "") -> Dict[str, Any]:
+    if not isinstance(tree, dict) or set(tree) != set(shapes):
+        raise ValueError(f"parameter tree keys{' at ' + path if path else ''}"
+                         f" differ from {name}'s")
+    return {k: (_tree(tree[k], s, dtype, device, name, f"{path}{k}/")
+                if isinstance(s, dict)
+                else _leaf(tree[k], s, dtype, device, f"{path}{k}"))
+            for k, s in sorted(shapes.items())}
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg, device=None
+                      ) -> Dict[str, Any]:
+    """The port's parameter tree from the reference's, leaves as numpy
+    arrays, for an ``LMConfig`` (``{"embed", "final_ln", "lm_head",
+    "layers": {...}}``, stacked layers), a ``GNNConfig`` (``{"proj":
+    {"w0", "b0"}, "eps0", ...}``) or a ``DINConfig`` (flat): keys equal
+    to the shapes ``cfg`` gives, each leaf checked against its shape and
+    cast to ``cfg.dtype`` on ``device``."""
+    shapes = _PARAM_SHAPES[type(cfg)](cfg)
+    return _tree(tree, shapes, cfg.dtype, resolve(device), cfg.name)
+
+
+_PARAM_SHAPES = {tf.LMConfig: tf.param_shapes,
+                 gnn.GNNConfig: gnn.param_shapes,
+                 recsys.DINConfig: recsys.param_shapes}
 
 
 def adamw_state_from_numpy(state: Dict[str, Any], device=None

@@ -1,2 +1,3 @@
-# The port's model substrate: ``transformer`` is the decoder-only LM
-# (dense and MoE) that the LM configs and ``launch.train`` build.
+# The port's model substrate: ``transformer`` is the decoder-only LM (dense
+# and MoE), ``gnn`` the four GNNs and ``recsys`` DIN, which the configs and
+# ``launch.train`` build.

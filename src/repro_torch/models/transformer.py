@@ -156,14 +156,12 @@ def param_shapes(cfg: LMConfig) -> Dict[str, object]:
     }
 
 
-def init_params(cfg: LMConfig, generator: torch.Generator,
-                device=None) -> Params:
-    """Random parameters, drawn from ``generator`` on its device (or on
-    ``device``, which must be the generator's kind).  The reference's
-    scheme: norms at one, matrices ``N(0, 1) / sqrt(fan_in)`` drawn in
-    float32 and cast, biases and padded heads at zero.  The draws differ
-    from the reference's (another RNG)."""
-    device = generator.device if device is None else torch.device(device)
+def init_params(cfg: LMConfig, generator: torch.Generator) -> Params:
+    """Random parameters, drawn from ``generator`` on its device.  The
+    reference's scheme: norms at one, matrices ``N(0, 1) / sqrt(fan_in)``
+    drawn in float32 and cast, biases and padded heads at zero.  The draws
+    differ from the reference's (another RNG)."""
+    device = generator.device
 
     def init_one(shape):
         if len(shape) == 1 or (len(shape) == 2 and shape[0] == cfg.n_layers):

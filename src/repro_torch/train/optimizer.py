@@ -120,14 +120,17 @@ def make_train_step(loss_fn: Callable, cfg: AdamWConfig,
     """Generic train step: (params, opt_state, batch) -> (params, state,
     metrics).  ``params`` is a tree of leaf tensors that require grad
     (``TransformerLM.params``); one forward and backward
-    (``torch.autograd.grad``) gives the loss and the gradients.
+    (``torch.autograd.grad``) gives the loss and the gradients; a leaf the
+    loss does not use (graphcast's ``m2g_node``) gets a zero gradient, as
+    ``jax.grad`` gives it.
     ``compressor`` optionally transforms grads (e.g. int8
     quantize/dequantize with error feedback — see train.compression)."""
 
     def step(params, opt_state, batch, comp_state=None):
         loss = loss_fn(params, batch)
         grads = tr.unflatten_like(
-            params, torch.autograd.grad(loss, tr.leaves(params)))
+            params, torch.autograd.grad(loss, tr.leaves(params),
+                                        materialize_grads=True))
         if compressor is not None:
             grads, comp_state = compressor(grads, comp_state)
         params, opt_state, metrics = apply_updates(params, grads, opt_state,

@@ -795,3 +795,138 @@ def test_adamw_in_place_equals_out_of_place_on_card(cuda, monkeypatch):
             _rel(params[k], ref_p[k], rel)
             _rel(st["m"][k], m[k], 1e-6)
             _rel(st["v"][k], v[k], 1e-6)
+
+
+# ---------------------------------------------------- GNN and DIN trainer
+GNN_DIN_ARCHS = ("gin-tu", "graphsage-reddit", "schnet", "graphcast", "din")
+
+
+def _smoke_inputs(arch_id):
+    """(cfg, model module, host params, numpy batch) of a smoke config."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import recsys_data
+    from repro_torch.models import gnn, recsys
+
+    arch = get_config(arch_id)
+    cfg = arch.smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    if arch.family == "recsys":
+        return cfg, recsys, recsys.init_params(cfg, gen), \
+            recsys_data.din_batch(8, cfg.seq_len, cfg.n_items, cfg.n_cates,
+                                  cfg.n_user_feats, cfg.user_feat_vocab,
+                                  step=0, seed=1)
+    return cfg, gnn, gnn.init_params(cfg, gen), arch.smoke_batch(seed=1)
+
+
+def _grads_on(mod, cfg, host, np_batch, dev):
+    """(params, loss, gradients in leaf order) of one step on ``dev``."""
+    from repro_torch.configs.base import batch_to
+    from repro_torch.train import tree as tr
+
+    params = tr.map_tree(lambda p: p.to(dev).requires_grad_(True), host)
+    loss = mod.loss_fn(params, batch_to(np_batch, dev), cfg)
+    grads = torch.autograd.grad(loss, tr.leaves(params),
+                                materialize_grads=True)
+    return params, loss.detach(), grads
+
+
+# DIN's attention MLP: the gradient of its scores sums to zero over each
+# history (the softmax is shift-invariant), so its leaves' gradients are
+# sums whose terms cancel (attn_b2's exactly: its gradient is zero) and a
+# float32 rounding of the scores' gradient shows there at 2e-5 of a leaf's
+# largest entry.  Each attn_* leaf is held within 1e-6 (16 float32 ulps)
+# of the largest entry of its gradient with the scores' gradient taken in
+# absolute value (the cancelling terms' magnitudes:
+# ``recsys.attention_grad_scales`` on the CPU), or within 1e-5 of its own,
+# whichever is larger.
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", GNN_DIN_ARCHS)
+def test_gnn_din_smoke_step_on_card_equals_cpu(cuda, no_tf32, arch_id):
+    """float32 smoke config from the same weights and batch: loss (1e-5
+    relative), every gradient leaf (1e-5 of the leaf's largest entry;
+    ``index_add`` adds in no fixed order on the card; DIN's attention MLP
+    as above), then two ``apply_updates`` from the CPU's gradients
+    (1e-6)."""
+    from repro_torch.configs.base import batch_to
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tr
+
+    cfg, mod, host, np_batch = _smoke_inputs(arch_id)
+    (pc, lc, gc), (pg, lg, gg) = [_grads_on(mod, cfg, host, np_batch, dev)
+                                  for dev in ("cpu", cuda)]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    scales = {}
+    if arch_id == "din":
+        scales = mod.attention_grad_scales(host, batch_to(np_batch, "cpu"),
+                                           cfg)
+    for name, a, b in zip(tr.to_dict(pc), gg, gc):
+        limit = max(1e-5 * float(b.abs().max()),
+                    1e-6 * scales.get(name, 0.0))
+        assert float((a.cpu() - b).abs().max()) <= limit, name
+    host_grads = tr.unflatten_like(pc, gc)
+    ocfg = opt.AdamWConfig(lr=1e-2, warmup_steps=0)
+    states = []
+    for params in (pc, pg):
+        dev = tr.leaves(params)[0].device
+        g = tr.map_tree(lambda t: t.to(dev), host_grads)
+        st = opt.init_state(params)
+        for _ in range(2):
+            params, st, _ = opt.apply_updates(params, g, st, ocfg)
+        states.append((params, st["m"], st["v"]))
+    for a, b in zip(tr.leaves(states[1]), tr.leaves(states[0])):
+        _rel(a, b, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sum", "mean"])
+def test_gnn_aggregate_repeated_destination_on_card(cuda, kind):
+    """Half of 200,000 messages into one destination (the sampler's sink
+    gets every padded edge), the rest spread, a row of 64 floats each:
+    the card's atomic adds equal the CPU's within float32 summation
+    error; rows no edge reaches stay exactly zero."""
+    from repro_torch.models import gnn
+
+    rng = np.random.default_rng(0)
+    n, e = 5_000, 200_000
+    dst = rng.integers(0, n // 2, e).astype(np.int32)
+    dst[: e // 2] = n - 1
+    msg = torch.from_numpy(rng.standard_normal((e, 64)).astype(np.float32))
+    dst = torch.from_numpy(dst)
+    want = gnn.aggregate(msg, dst, n, kind)
+    got = gnn.aggregate(msg.to(cuda), dst.to(cuda), n, kind).cpu()
+    _rel(got, want, 1e-5)
+    assert not got[n // 2:n - 1].any()
+
+
+@pytest.mark.cuda
+def test_din_table_gradient_dense_on_card(cuda, no_tf32):
+    """DIN's embedding gradients on the card are dense (strided, the
+    table's shape), zero on rows no id touched, and equal to the CPU's;
+    one AdamW step moves every row (decay on 2-D leaves)."""
+    from repro_torch.configs.base import batch_to
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tr
+
+    cfg, mod, host, np_batch = _smoke_inputs("din")
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = {k: v.to(dev).requires_grad_(True) for k, v in host.items()}
+        loss = mod.loss_fn(params, batch_to(np_batch, dev), cfg)
+        grads[str(dev)] = dict(zip(sorted(params), torch.autograd.grad(
+            loss, [params[k] for k in sorted(params)])))
+    gc, gg = grads["cpu"], grads[str(cuda)]
+    used = np.unique(np.concatenate([np_batch["item_id"].ravel(),
+                                     np_batch["hist_items"].ravel()]))
+    for k in ("item_table", "cate_table", "user_table"):
+        assert gg[k].layout == torch.strided
+        assert gg[k].shape == host[k].shape and gg[k].is_cuda
+        _rel(gg[k], gc[k], 1e-5)
+    rows = torch.ones(cfg.n_items, dtype=torch.bool)
+    rows[torch.from_numpy(used).long()] = False
+    assert not gg["item_table"].cpu()[rows].any()
+    params = {k: v.to(cuda) for k, v in host.items()}
+    before = params["item_table"].clone()
+    opt.apply_updates(params, gg, opt.init_state(params),
+                      opt.AdamWConfig(lr=1e-2, warmup_steps=0))
+    assert bool((params["item_table"] != before).all(-1).all())
+    assert tr.leaves(params)[0].is_cuda

@@ -54,6 +54,11 @@ import repro_torch.launch.train
 from repro_torch.configs import get_config
 lm = get_config("qwen2-7b").smoke(seed=0, device="cpu")
 assert lm["finite"], lm
+import repro_torch.models.gnn, repro_torch.models.recsys
+import repro_torch.data.sampler, repro_torch.data.gnn_data
+import repro_torch.data.recsys_data
+gnn = get_config("graphsage-reddit").smoke(seed=0, device="cpu")
+assert gnn["finite"], gnn
 from repro_torch.data.graphs import random_labeled_graph
 from repro_torch.data.queries import random_query_from_graph
 g = random_labeled_graph(50, avg_degree=2.5, n_labels=3, seed=1)

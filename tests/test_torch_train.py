@@ -446,8 +446,8 @@ def test_launch_train_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _main(["--steps", "1", "--ckpt-dir", str(tmp_path)], monkeypatch)
     assert not os.listdir(tmp_path)
-    with pytest.raises(KeyError, match="GNN and recsys slice"):
-        _main(["--arch", "gin-tu", "--device", "cpu", "--ckpt-dir",
+    with pytest.raises(KeyError, match="the dry-run slice"):
+        _main(["--arch", "rig_gm", "--device", "cpu", "--ckpt-dir",
                str(tmp_path)], monkeypatch)
 
 
