@@ -158,9 +158,41 @@
    and
    ``launch.train.main --scale full --steps 3`` for gin-tu,
    graphsage-reddit and din, each in a fresh checkpoint directory.
-11. Prints the ``lm`` JSON line, the ``gnn`` JSON line, the ``kernels``
-   JSON line, the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+11. Sharded GNN training step, after the GNN / DIN path frees its
+   tensors (float32, TF32 off; no kernel of the port may launch): gin-tu
+   at its published width over the whole of ``ogb_products`` padded as
+   ``_pad512`` pads it (2,449,408 nodes, 61,859,328 edges; the padding
+   masked and inert) through ``models.gnn_dist.sharded_train_step`` on a
+   1 x 1 NCCL mesh, the edges sorted by destination on the card (the
+   destination partition at one rank; the sort fenced and timed).  The
+   single-device gradients and one step of ``launch.train.make_step``
+   from the same weights and batch are the yardstick: the sharded
+   step's loss within 2e-5 relative, every gradient leaf within 1e-5 of
+   its largest entry or 4 times the spread of two single-device runs
+   (float atomics; the updated leaves' error is reported: AdamW's first
+   step normalises each entry by its own gradient).
+   Then 3 steps fenced and timed (seconds, edges a second, the share of
+   the 67 TFLOP/s FP32 peak), one split into forward + backward and
+   update, the peak memory, each collective's calls and payload bytes,
+   and one step under ``torch.profiler`` (its kernels' device time, the
+   device's idle share, the kernels that take it).
+12. The paper's own arch, ``rig_gm`` (``configs.pattern.PatternArch``):
+   its smoke on the card for seeds 0 to 3 (``TorchGM``: ``bitmm`` and
+   ``gather_expand``), each count equal to the host ``match``'s with no
+   overflow; then ``closure_256k``: one ``closure_step`` at n_pad 2^18 (R
+   262,144 x 8,192 lanes, 8 GiB: the email profile cut to 2^18 nodes,
+   its adjacency transposed so that its in-degree hubs are rows past the
+   list capacity, ORed with the identity, built from its pairs on the
+   card), every row past the list capacity and 4,096 random rows of R'
+   equal to the plain rule computed on the card row by row (the OR of
+   R's rows at the row's set bits, ORed with the row), timed by CUDA
+   events beside its bound (and again with the dense rows cleared), with
+   its set bits before and after and its peak memory.  The phase's
+   launches join the ``kernels`` line (``launches_by_path["pattern"]``;
+   ``closure_step``'s row takes a ``closure_256k`` entry).
+13. Prints the ``lm``, ``gnn``, ``gnn_dist`` and ``pattern`` JSON lines,
+   the ``kernels`` JSON line, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, as does a spill that ptxas
 reports in any instantiation of ``gather_intersect_kernel`` or
@@ -705,15 +737,17 @@ def exact_counts(card: str, gm, queries, refs, journal, capture):
 
 
 class Collectives:
-    """Records each ``all_reduce`` / ``all_gather`` of ``torch.distributed``
-    that a run calls: (name, ranks in its group, payload bytes per rank);
-    the functions themselves are untouched."""
+    """Records each ``all_reduce`` / ``all_gather`` / ``reduce_scatter`` of
+    ``torch.distributed`` that a run calls: (name, ranks in its group,
+    payload bytes per rank: the tensor reduced, the tensor each rank
+    sends, the tensors each rank reduces); the functions themselves are
+    untouched."""
 
     def __init__(self):
         import torch.distributed as dist
         self.calls = []
-        self.saved = {name: getattr(dist, name)
-                      for name in ("all_reduce", "all_gather")}
+        self.saved = {name: getattr(dist, name) for name in
+                      ("all_reduce", "all_gather", "reduce_scatter")}
 
         def all_reduce(t, *a, group=None, **kw):
             self.calls.append(("all_reduce", dist.get_world_size(group),
@@ -725,7 +759,15 @@ class Collectives:
                                t.numel() * t.element_size()))
             return self.saved["all_gather"](parts, t, *a, group=group, **kw)
 
+        def reduce_scatter(t, parts, *a, group=None, **kw):
+            self.calls.append(("reduce_scatter", dist.get_world_size(group),
+                               sum(p.numel() * p.element_size()
+                                   for p in parts)))
+            return self.saved["reduce_scatter"](t, parts, *a, group=group,
+                                                **kw)
+
         dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        dist.reduce_scatter = reduce_scatter
 
     def restore(self):
         import torch.distributed as dist
@@ -745,13 +787,15 @@ class Collectives:
     def ring_estimate(self):
         """{name: bytes on the wire per rank} under a ring algorithm (an
         all-reduce sends 2 (n - 1) / n of its payload, an all-gather
-        receives (n - 1) payloads): a model, not a reading, since NCCL
-        may choose another algorithm; for the log only."""
+        receives (n - 1) payloads, a reduce-scatter sends (n - 1) / n of
+        its payload): a model, not a reading, since NCCL may choose another
+        algorithm; for the log only."""
+        share = {"all_reduce": lambda n, b: 2 * (n - 1) * b // n,
+                 "all_gather": lambda n, b: (n - 1) * b,
+                 "reduce_scatter": lambda n, b: (n - 1) * b // n}
         out = {}
         for name, n, nbytes in self.calls:
-            out[name] = out.get(name, 0) + (
-                2 * (n - 1) * nbytes // n if name == "all_reduce"
-                else (n - 1) * nbytes)
+            out[name] = out.get(name, 0) + share[name](n, nbytes)
         return out
 
 
@@ -1944,6 +1988,483 @@ def gnn_path(torch, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------- sharded GNN training step
+# gin-tu over the whole of ogb_products through models.gnn_dist on a 1 x 1
+# NCCL mesh, against one step of the single-device make_step
+GNN_DIST_STEPS = 3
+GNN_DIST_LOSS_REL = 2e-5
+# every gradient leaf within this share of its largest entry, or within
+# GNN_DIST_SPREADS times the largest that two single-device runs differ
+# by (the float atomics sum in no fixed order, and at this shape the
+# activations reach 1e5).  The updated leaves are reported, not held:
+# after clipping to a global norm of 1, AdamW's first step moves each
+# entry by lr * g / (|g| + eps), so an entry near eps moves by a share of
+# lr that the atomics' order changes at will
+GNN_DIST_GRAD_REL = 1e-5
+GNN_DIST_SPREADS = 4
+
+
+def _padded_products_batch(np, cfg, sp):
+    """``ogb_products``' whole-graph batch (seed 0) padded as ``_pad512``
+    pads it: padding nodes with ``node_mask`` 0 and no feature, padding
+    edges from the last padding node to itself."""
+    from repro_torch.configs.base import _pad512
+    from repro_torch.data import gnn_data
+
+    b = gnn_data.full_graph_batch(sp["n_nodes"], sp["n_edges"],
+                                  sp["d_feat"], cfg.n_classes, seed=0)
+    n, e = _pad512(sp["n_nodes"]), _pad512(sp["n_edges"])
+    pad_n, pad_e = n - sp["n_nodes"], e - sp["n_edges"]
+    sink = np.full(pad_e, n - 1, dtype=np.int32)
+    return {
+        "node_feat": np.concatenate([b["node_feat"], np.zeros(
+            (pad_n, sp["d_feat"]), np.float32)]),
+        "edge_src": np.concatenate([b["edge_src"], sink]),
+        "edge_dst": np.concatenate([b["edge_dst"], sink]),
+        "labels": np.concatenate([b["labels"], np.zeros(pad_n, np.int32)]),
+        "node_mask": np.concatenate([b["node_mask"], np.zeros(pad_n, bool)]),
+        "train_mask": np.concatenate([b["train_mask"],
+                                      np.zeros(pad_n, bool)])}
+
+
+def profiled_step(torch, fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA
+    activities): its wall seconds (fenced), the device seconds of its
+    kernels (CUPTI), the device's idle share of the wall time, and the
+    ``top`` kernels by device time with their calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e6
+    if device <= 0:
+        raise AssertionError("the profiler saw no device time")
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_s": wall, "device_s": device,
+            "idle_share": max(0.0, 1 - device / wall),
+            "top": [{"kernel": e.key[:120], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:top]]}
+
+
+def gnn_dist_path(torch, np, card: str) -> dict:
+    """gin-tu at its published width over the whole of ``ogb_products``
+    (float32, TF32 off) through ``models.gnn_dist.sharded_train_step`` on
+    a 1 x 1 NCCL mesh, the edges sorted by destination on the card (the
+    destination partition at one rank).  First the single-device
+    gradients and one step of ``launch.train.make_step`` from the same
+    parameters and batch (kept on the host), then the sharded
+    gradients (``sharded_loss_and_grads``) and step from the same
+    parameters: losses within 2e-5 relative, every gradient leaf within
+    1e-5 of its largest entry or 4 times the single-device gradients'
+    own run-to-run spread; the updated leaves' error is reported (see
+    ``GNN_DIST_GRAD_REL``).  Then
+    ``GNN_DIST_STEPS`` steps fenced and timed, and one more split into
+    forward + backward and update.  No kernel of the port may launch."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import batch_to
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.train import AdamWConfig, apply_updates, init_state
+    from repro_torch.train import tree as tr
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()               # just before the gnn_dist path
+    arch = get_config("gin-tu")
+    sp = arch.shapes["ogb_products"]
+    cfg = arch._shape_cfg(sp)
+    ocfg = AdamWConfig(total_steps=GNN_DIST_STEPS + 2)
+    flops = arch.model_flops("ogb_products")
+    t0 = time.perf_counter()
+    np_batch = _padded_products_batch(np, cfg, sp)
+    data_s = time.perf_counter() - t0
+    batch = batch_to(np_batch, GNN_DEVICE)
+    n_nodes, n_edges = len(np_batch["node_mask"]), len(np_batch["edge_src"])
+    del np_batch
+    host = tr.map_tree(lambda p: p.cpu(), gnn.init_params(
+        cfg, torch.Generator(GNN_DEVICE).manual_seed(0)))
+
+    def fresh():
+        params = gnn.GNN(cfg, tr.map_tree(
+            lambda p: p.to(GNN_DEVICE, copy=True), host)).params
+        return params, init_state(params)
+
+    out = {"arch": "gin-tu", "shape": "ogb_products", "card": card,
+           "mesh": [1, 1], "nodes": n_nodes, "edges": n_edges,
+           "real_edges": sp["n_edges"], "model_flops_per_step": flops,
+           "peak_source": FP32_PEAK_SOURCE, "data_s": data_s}
+    try:
+        # the single-device gradients (twice: their run-to-run spread on
+        # the card) and step, the yardstick
+        params, state = fresh()
+
+        def single_grads():
+            loss = gnn.loss_fn(params, batch, cfg)
+            return {k: g.cpu() for k, g in zip(
+                tr.to_dict(params), torch.autograd.grad(
+                    loss, tr.leaves(params), materialize_grads=True))}
+        want_grads, again = single_grads(), single_grads()
+        step = make_step(lambda p, b: gnn.loss_fn(p, b, cfg), ocfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s1, metrics = step({"params": params, "opt": state}, batch)
+        torch.cuda.synchronize()
+        out["single_device_step_s"] = time.perf_counter() - t0
+        want_loss = float(metrics["loss"])
+        want = {k: v.detach().cpu() for k, v in
+                tr.to_dict(s1["params"]).items()}
+        del params, state, s1, metrics, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the destination partition at one rank: edges sorted by edge_dst
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst, order = torch.sort(batch["edge_dst"], stable=True)
+        batch["edge_src"] = batch["edge_src"].index_select(0, order)
+        batch["edge_dst"] = dst
+        torch.cuda.synchronize()
+        out["sort_s"] = time.perf_counter() - t0
+        del dst, order
+
+        t0 = time.perf_counter()
+        mesh = make_local_mesh(1, 1)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the card's mesh runs "
+                                     f"{dist.get_backend()}, not nccl")
+            dist.all_reduce(torch.zeros(1, device=GNN_DEVICE))
+            torch.cuda.synchronize()
+            out["setup_s"] = time.perf_counter() - t0
+            step, spec = gnn_dist.sharded_train_step(cfg, mesh, ocfg)
+            out["batch_spec"] = {k: [list(a) if a else None for a in v]
+                                 for k, v in spec.items()}
+            loss_and_grads = gnn_dist.sharded_loss_and_grads(cfg, mesh)
+            params, state = fresh()
+            grad_loss, grads = loss_and_grads(params, batch)
+            got_grads = {k: g.cpu() for k, g in tr.to_dict(grads).items()}
+            del grads
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            coll = Collectives()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, loss = step(params, state, batch)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                coll.restore()
+            out["collectives_per_step"] = coll.summary()
+            loss_err = max(abs(float(x) - want_loss) for x in
+                           (grad_loss, loss)) / max(abs(want_loss), 1.0)
+
+            def rel(got, w):
+                return float((got - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+            grad_err = {k: rel(got_grads[k], w)
+                        for k, w in want_grads.items()}
+            spread = max(rel(again[k], w) for k, w in want_grads.items())
+            grad_limit = max(GNN_DIST_GRAD_REL, GNN_DIST_SPREADS * spread)
+            updated = {k: v.detach().cpu()
+                       for k, v in tr.to_dict(params).items()}
+            leaf_err = {k: rel(updated[k], w) for k, w in want.items()}
+            worst = max(leaf_err, key=leaf_err.get)
+            at = int((updated[worst] - want[worst]).abs().argmax())
+            g = want_grads[worst].reshape(-1)
+            out["equality"] = {
+                "loss": float(loss), "single_device_loss": want_loss,
+                "loss_rel_err": loss_err,
+                "max_grad_rel_err": max(grad_err.values()),
+                "single_device_grad_spread": spread,
+                "limits": [GNN_DIST_LOSS_REL, grad_limit],
+                "max_updated_leaf_rel_err": leaf_err[worst],
+                "worst_updated_entry": {
+                    "leaf": worst, "index": at,
+                    "grad_over_leaf_max": float(g[at].abs())
+                    / max(float(g.abs().max()), 1e-30)}}
+            log(f"[{card}] gnn_dist: gin-tu ogb_products sharded step on the"
+                f" 1 x 1 mesh {first_s:.4f} s (first), loss "
+                f"{float(loss):.6f} against the single-device step's "
+                f"{want_loss:.6f} ({out['single_device_step_s']:.4f} s): "
+                f"relative error {loss_err:.3e}; gradients' largest error "
+                f"{max(grad_err.values()):.3e} of their leaf's largest entry "
+                f"(two single-device runs: {spread:.3e}; limits "
+                f"{GNN_DIST_LOSS_REL}, {grad_limit:.3e}); "
+                f"updated leaves' largest error {leaf_err[worst]:.3e} "
+                f"({json.dumps(out['equality']['worst_updated_entry'])}); "
+                f"collectives [calls, payload B] "
+                f"{json.dumps(out['collectives_per_step'], sort_keys=True)}")
+            bad = {k: e for k, e in grad_err.items() if not e <= grad_limit}
+            if not loss_err <= GNN_DIST_LOSS_REL or bad:
+                raise AssertionError(f"the sharded step differs from the "
+                                     f"single-device step: loss {loss_err},"
+                                     f" gradients {bad}")
+            out["step_s"], out["loss"] = [first_s], [float(loss)]
+            for _ in range(GNN_DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, loss = step(params, state, batch)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+                out["loss"].append(float(loss))
+            steady = out["step_s"][1:]
+            out["edges_per_s"] = [sp["n_edges"] / s for s in steady]
+            out["fp32_peak_share"] = [flops / s / FP32_PEAK_FLOPS
+                                      for s in steady]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(params, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            apply_updates(params, grads, state, ocfg)
+            torch.cuda.synchronize()
+            out["split_s"] = {"forward_backward": t1 - t0,
+                              "update": time.perf_counter() - t1}
+            out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            out["found_allocated_bytes"] = base
+            del loss, grads
+            out["profile"] = profiled_step(
+                torch, lambda: step(params, state, batch))
+            del params, state
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    bad = [v for v in out["loss"] if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"gnn_dist: non-finite loss {bad}")
+    launched = launch_counts()          # just after the gnn_dist path
+    out["launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"the gnn_dist path launched kernels: "
+                             f"{launched}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{card}] gnn_dist: steps {[round(s, 4) for s in out['step_s']]} s"
+        f" (fenced), {sp['n_edges'] / min(steady):,.0f} edges/s at best, "
+        f"{100 * flops / min(steady) / FP32_PEAK_FLOPS:.2f}% of the FP32 "
+        f"peak; a further step split: forward + backward "
+        f"{out['split_s']['forward_backward']:.4f} s, update "
+        f"{out['split_s']['update']:.4f} s; peak memory "
+        f"{out['peak_bytes']:,} B above the {base:,} B found allocated; the "
+        f"sort by destination {out['sort_s']:.4f} s; host data "
+        f"{data_s:.2f} s; {out['seconds']:.1f} s in all")
+    prof = out["profile"]
+    log(f"[{card}] gnn_dist: a profiled step {prof['wall_s']:.4f} s, its "
+        f"kernels {prof['device_s']:.4f} s of device time (idle share "
+        f"{prof['idle_share']:.4f}); by device time: "
+        + "; ".join(f"{k['kernel'][:60]} x{k['calls']} {k['device_ms']:.3f}"
+                    f" ms" for k in prof["top"]))
+    return out
+
+
+# ------------------------------------------------------- the paper's arch
+PATTERN_DEVICE = "cuda"
+PATTERN_SEEDS = (0, 1, 2, 3)
+# closure_256k: one closure_step at n_pad 2^18 on R = adjacency^T | I of
+# the email profile cut to 2^18 nodes (its in-degree hubs are dense rows)
+CLOSURE_256K_RANDOM_ROWS = 4096
+CLOSURE_256K_GATHER_ROWS = 8192     # R rows gathered at once by the check
+CLOSURE_256K_ITERS = 5
+
+
+def _or_rows(rows):
+    """The OR of a (k, W) block of lanes' rows, k >= 1, by halving."""
+    while rows.shape[0] > 1:
+        h = rows.shape[0] // 2
+        head = rows[:h] | rows[h:2 * h]
+        if rows.shape[0] % 2:
+            head[0] |= rows[2 * h]
+        rows = head
+    return rows[0]
+
+
+def closure_rows_by_rule(torch, r, rows):
+    """Row ``i`` of ``R | (R·R > 0)`` for each ``i`` of ``rows``, by the
+    plain rule on the card: R's row ``i`` ORed with the OR of R's rows at
+    its set bits.  (len(rows), W) int32 lanes."""
+    from repro_torch.kernels import packed
+    n = r.shape[0]
+    out = []
+    for i in rows:
+        acc = r[i].clone()
+        ks = packed.unpack(r[i], n).nonzero().view(-1)
+        for c0 in range(0, ks.numel(), CLOSURE_256K_GATHER_ROWS):
+            acc |= _or_rows(r.index_select(
+                0, ks[c0:c0 + CLOSURE_256K_GATHER_ROWS]))
+        out.append(acc)
+    return torch.stack(out)
+
+
+def closure_256k(torch, np, card: str):
+    """``rig_gm``'s ``closure_256k`` shape on one card: one ``closure_step``
+    at n_pad 2^18 (R 8 GiB).  R is the adjacency of
+    ``paper_profile_graph("email", scale=262144/265214, seed=0)``
+    transposed (each row a node's in-neighbours, so the profile's in-degree
+    hubs are rows past ``LIST_CAP``) ORed with the identity, built from
+    its pairs (``packed.from_pairs``) straight into the card's zeroed
+    matrix.  Every row past ``LIST_CAP`` set bits and
+    ``CLOSURE_256K_RANDOM_ROWS`` random rows of R' must equal the plain
+    rule exactly (the plain version's bf16 unpack of R would take
+    128 GiB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.graphs import paper_profile_graph
+    from repro_torch.kernels import packed
+    from repro_torch.kernels.closure import LIST_CAP, closure_step
+
+    arch = get_config("rig_gm")
+    n = arch.shapes["closure_256k"]["n_pad"]
+    t0 = time.perf_counter()
+    g = paper_profile_graph("email", scale=n / 265_214, seed=0)
+    if g.n != n:
+        raise AssertionError(f"the email profile cut to {n} nodes has "
+                             f"{g.n}")
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ids = np.arange(n)
+    r = packed.from_pairs(np.concatenate([g.edges[:, 1], ids]),
+                          np.concatenate([g.edges[:, 0], ids]), (n, n),
+                          device=PATTERN_DEVICE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cnt = torch.cat([packed.popcount(r[r0:r0 + 4096]).sum(dim=1)
+                     for r0 in range(0, n, 4096)])
+    dense = (cnt > LIST_CAP).nonzero().view(-1).tolist()
+    out = {"n_pad": n, "lanes": r.shape[1], "r_bytes": r.numel() * 4,
+           "graph_edges": int(g.n_edges), "graph_s": t1 - t0,
+           "build_r_s": t2 - t1, "set_bits_before": int(cnt.sum()),
+           "dense_rows": len(dense), "densest_row_bits": int(cnt.max()),
+           "model_flops": arch.model_flops("closure_256k")}
+    del cnt
+    return r, dense, out, base
+
+
+def pattern_path(torch, np, card: str, rows) -> dict:
+    """The paper's own arch, ``rig_gm``: (a) its smoke (``TorchGM`` on the
+    card: the simulation on ``bitmm``, the enumeration on
+    ``gather_expand``) for seeds 0 to 3, each count equal to the host
+    ``match``'s with no overflow; (b) ``closure_256k``: one
+    ``closure_step`` at n_pad 2^18, rows held to the plain rule, timed by
+    CUDA events beside its bound.  Launch counts are reset just before
+    the phase and read after the smoke and after the step; the phase's
+    launches join the ``kernels`` rows (``launches_by_path["pattern"]``)
+    and ``closure_step``'s row takes a ``closure_256k`` entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.closure import closure_step
+
+    t_phase = time.perf_counter()
+    arch = get_config("rig_gm")
+    reset_launch_counts()               # just before the pattern path
+    smoke = {}
+    for seed in PATTERN_SEEDS:
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = arch.smoke(seed)
+        after = launch_counts()
+        smoke[seed] = {**res, "seconds": time.perf_counter() - t0,
+                       "launches": {k: v - before.get(k, 0)
+                                    for k, v in after.items()}}
+        log(f"[{card}] rig_gm smoke seed {seed}: {json.dumps(smoke[seed])}")
+        if not res["finite"] or res["count"] != res["host_count"]:
+            raise AssertionError(f"rig_gm smoke seed {seed}: {res}")
+        if not all(smoke[seed]["launches"].get(k) for k in SERVE_KERNELS):
+            raise AssertionError(f"rig_gm smoke seed {seed} launched "
+                                 f"{smoke[seed]['launches']}, not "
+                                 f"{SERVE_KERNELS}")
+    smoke_launches = launch_counts()
+
+    r, dense, info, base = closure_256k(torch, np, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = closure_step(r)
+    torch.cuda.synchronize()
+    info["first_call_s"] = time.perf_counter() - t0
+    launched = launch_counts()          # just after the pattern path
+    closure_launches = {k: v - smoke_launches.get(k, 0)
+                        for k, v in launched.items()
+                        if v != smoke_launches.get(k, 0)}
+    if closure_launches != {"closure_step": 1}:
+        raise AssertionError(f"closure_256k launched {closure_launches}")
+    info["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    n = r.shape[0]
+    random_rows = np.random.default_rng(0).choice(
+        n, CLOSURE_256K_RANDOM_ROWS, replace=False).tolist()
+    checked = sorted(set(dense) | set(random_rows))
+    t0 = time.perf_counter()
+    want = closure_rows_by_rule(torch, r, checked)
+    got = r2.index_select(0, torch.tensor(checked, device=PATTERN_DEVICE))
+    equal = torch.equal(got, want)
+    torch.cuda.synchronize()
+    info["check_s"] = time.perf_counter() - t0
+    info["rows_checked"] = len(checked)
+    del got, want
+    if not equal:
+        raise AssertionError("closure_256k: closure_step's rows differ from "
+                             "the plain rule")
+    info["set_bits_after"] = set_bits(r2)
+    info["ms"] = time_ms(torch, lambda: closure_step(r, out=r2),
+                         iters=CLOSURE_256K_ITERS, warmup=1)
+    least, by, nbytes, ops = bound_ms("closure_step", (r,), {})
+    # where the time goes: the same step with the rows past LIST_CAP
+    # cleared (R is not read again after this)
+    r[torch.tensor(dense, device=PATTERN_DEVICE)] = 0
+    info["ms_dense_rows_cleared"] = time_ms(
+        torch, lambda: closure_step(r, out=r2), iters=CLOSURE_256K_ITERS,
+        warmup=1)
+    info.update({"bound_ms": least, "bound_by": by, "bound_bytes": nbytes,
+                 "bound_ops": ops, "launches": 1, "max_abs_err": 0,
+                 "plain_ms": None, "library_ms": None,
+                 "library": "none: the unpacked R does not fit (128 GiB "
+                            "in bf16)",
+                 "plain": "not run: its bf16 unpack of R takes 128 GiB; "
+                          "rows held to the plain rule instead"})
+    log(f"[{card}] closure_256k: R {n} x {r.shape[1]} lanes "
+        f"({info['r_bytes']:,} B), graph {info['graph_s']:.2f} s, R built "
+        f"from its pairs in {info['build_r_s']:.2f} s; set bits "
+        f"{info['set_bits_before']:,} -> {info['set_bits_after']:,}; "
+        f"{info['dense_rows']} rows past the list capacity (the densest "
+        f"{info['densest_row_bits']:,} bits); closure_step "
+        f"{info['ms']:.6f} ms (CUDA events, {CLOSURE_256K_ITERS} calls; "
+        f"{info['ms_dense_rows_cleared']:.6f} ms with the dense rows "
+        f"cleared), "
+        f"first call {info['first_call_s']:.4f} s (fenced), bound "
+        f"{least:.6f} ms ({by}: {nbytes:,} B, {ops:,} ops); "
+        f"{info['rows_checked']} rows equal the plain rule "
+        f"({info['check_s']:.2f} s); peak memory {info['peak_bytes']:,} B; "
+        f"model_flops 2 N^3 = {info['model_flops']:.4e} (the dense form's "
+        f"count; the kernel does list work)")
+    del r, r2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for row in rows:
+        k = launched.get(row["name"], 0)
+        row["launches_by_path"]["pattern"] = k
+        row["launches"] += k
+        if row["name"] == "closure_step":
+            row["closure_256k"] = info
+    out = {"card": card, "smoke": smoke, "launches": launched,
+           "closure_256k": info,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[{card}] pattern path {out['seconds']:.1f} s; launches "
+        f"{json.dumps(launched, sort_keys=True)}")
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 def bound(name: str, args, kw):
     """(bytes, operations) the call must move / do on these inputs."""
@@ -2696,6 +3217,18 @@ def main() -> int:
     log(f"[{card}] device memory before the GNN / DIN path: "
         f"{torch.cuda.memory_allocated():,} B allocated")
     gnn = gnn_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{card}] device memory before the gnn_dist path: "
+        f"{torch.cuda.memory_allocated():,} B allocated")
+    t0 = time.perf_counter()
+    gnn_dist = gnn_dist_path(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    pattern = pattern_path(torch, np, card, rows)
+    log(f"[{card}] gnn_dist path {t1 - t0:.1f} s, pattern path "
+        f"{time.perf_counter() - t1:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -2705,6 +3238,8 @@ def main() -> int:
     log(f"[{card}] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"lm": lm}))
     print(json.dumps({"gnn": gnn}))
+    print(json.dumps({"gnn_dist": gnn_dist}))
+    print(json.dumps({"pattern": pattern}))
     print(json.dumps({"kernels": rows}))
     if spilled:
         raise AssertionError(f"ptxas reports spills in {spilled}")

@@ -1,8 +1,6 @@
 """Architecture registry: ``get_config(arch_id)`` / ``all_arch_ids()``.
 
-The ten assigned architectures: five LMs, four GNNs and DIN.  The paper's
-own workload (``rig_gm``) is not ported yet: asking for it raises a
-``KeyError`` that names the slice of the port still to come.
+The ten assigned architectures plus the paper's own workload (rig_gm).
 """
 
 from __future__ import annotations
@@ -24,20 +22,25 @@ _MODULES: Dict[str, str] = {
     "graphsage-reddit": ".graphsage_reddit",
     # recsys
     "din": ".din",
+    # the paper's workload
+    "rig_gm": ".pattern",
 }
 
-_NOT_PORTED: Dict[str, str] = {"rig_gm": "the dry-run slice"}
+
+def all_arch_ids(include_pattern: bool = True) -> List[str]:
+    ids = list(_MODULES)
+    if not include_pattern:
+        ids.remove("rig_gm")
+    return ids
 
 
-def all_arch_ids() -> List[str]:
-    return list(_MODULES)
+ASSIGNED = all_arch_ids(include_pattern=False)
 
 
 def get_config(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: it comes with "
-                       f"{_NOT_PORTED[arch_id]} of the port; ported: "
-                       f"{list(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
-    return importlib.import_module(_MODULES[arch_id], __package__).CONFIG
+    mod = importlib.import_module(_MODULES[arch_id], __package__)
+    if arch_id == "rig_gm":
+        return mod.PatternArch()
+    return mod.CONFIG

@@ -87,3 +87,33 @@ def pack_numpy_u64_to_u32(words64: np.ndarray) -> torch.Tensor:
     """The host path's packed uint64 words as int32 lanes (little-endian
     layouts are bit-compatible: one uint64 word is two lanes)."""
     return torch.from_numpy(np.ascontiguousarray(words64).view(np.int32))
+
+
+def from_pairs(rows, cols, shape, device=None) -> torch.Tensor:
+    """int32 lanes ``(shape[0], ceil(shape[1] / 32))`` with bit ``(rows[i],
+    cols[i])`` set for every ``i`` (repeats allowed), on ``device``.  The
+    bits are ORed into one word per distinct ``(row, lane)`` on the host
+    and written into a zeroed matrix: no dense matrix is formed, so a
+    2^18 x 2^18 one (8 GiB packed, 64 GiB as bool) builds from its edges
+    alone."""
+    n_rows, n_cols = shape
+    w = -(-n_cols // WORD)
+    rows = np.asarray(rows, dtype=np.int64).ravel()
+    cols = np.asarray(cols, dtype=np.int64).ravel()
+    if rows.shape != cols.shape:
+        raise ValueError(f"{rows.size} rows and {cols.size} columns")
+    if rows.size and not (0 <= rows.min() and rows.max() < n_rows
+                          and 0 <= cols.min() and cols.max() < n_cols):
+        raise ValueError(f"a pair lies outside {tuple(shape)}")
+    out = torch.zeros(n_rows * w, dtype=torch.int32, device=device)
+    if rows.size:
+        key = rows * w + (cols >> 5)
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        bits = np.left_shift(np.uint32(1), (cols[order] & 31).astype(
+            np.uint32))
+        starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        words = np.bitwise_or.reduceat(bits, starts).view(np.int32)
+        out[torch.from_numpy(key[starts]).to(out.device)] = \
+            torch.from_numpy(words).to(out.device)
+    return out.view(n_rows, w)

@@ -367,3 +367,29 @@ def test_torchgm_closure_on_device_equals_jaxgm_and_host_gm():
             assert g.count == j_match(jg, jq, limit=None,
                                       materialize=False).count
     assert sum(not w.overflowed for w in want) >= 3
+
+
+# ---------------------------------------------------------------- from_pairs
+@pytest.mark.parametrize("shape,n_pairs", [((96, 96), 400), ((70, 45), 90),
+                                           ((64, 1000), 3000), ((33, 33), 0)])
+def test_from_pairs_equals_jax_pack_of_dense(shape, n_pairs):
+    """Repeated pairs, a column count off the 32-bit lanes, a wide row
+    holding most of the pairs, no pair at all."""
+    rng = np.random.default_rng(n_pairs)
+    rows = rng.integers(0, shape[0], n_pairs)
+    rows[: n_pairs // 2] = shape[0] - 1
+    cols = rng.integers(0, shape[1], n_pairs)
+    dense = np.zeros(shape, dtype=bool)
+    dense[rows, cols] = True
+    got = packed.from_pairs(rows, cols, shape, device="cpu")
+    assert got.dtype == torch.int32
+    assert np.array_equal(words(got), words(jpacked.pack(jnp.asarray(dense))))
+
+
+def test_from_pairs_rejects_pairs_outside_the_matrix():
+    with pytest.raises(ValueError, match="outside"):
+        packed.from_pairs([0, 5], [1, 2], (5, 5), device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        packed.from_pairs([0], [-1], (5, 5), device="cpu")
+    with pytest.raises(ValueError, match="2 rows and 1 columns"):
+        packed.from_pairs([0, 1], [1], (5, 5), device="cpu")

@@ -930,3 +930,107 @@ def test_din_table_gradient_dense_on_card(cuda, no_tf32):
                       opt.AdamWConfig(lr=1e-2, warmup_steps=0))
     assert bool((params["item_table"] != before).all(-1).all())
     assert tr.leaves(params)[0].is_cuda
+
+
+# ----------------------------------------------- sharded GNN step, rig_gm
+def _sharded_run(arch_id, device, host, np_batch):
+    """(loss, gradients in leaf order, parameters / m / v after one step)
+    of ``models.gnn_dist`` on a 1 x 1 mesh on ``device`` (NCCL on the
+    card, gloo on the CPU), the group torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import batch_to
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import gnn, gnn_dist
+    from repro_torch.train import AdamWConfig, init_state
+    from repro_torch.train import tree as tr
+
+    cfg = get_config(arch_id).smoke_config()
+    pin, frontier.DEFAULT_DEVICE = frontier.DEFAULT_DEVICE, \
+        "cpu" if device == "cpu" else None
+    try:
+        mesh = make_local_mesh(1, 1)
+        assert dist.get_backend() == ("gloo" if device == "cpu" else "nccl")
+        params = gnn.GNN(cfg, tr.map_tree(
+            lambda p: p.to(device, copy=True), host)).params
+        batch = batch_to(np_batch, device)
+        loss, grads = gnn_dist.sharded_loss_and_grads(cfg, mesh)(params,
+                                                                 batch)
+        step, _ = gnn_dist.sharded_train_step(
+            cfg, mesh, AdamWConfig(lr=1e-2, warmup_steps=0))
+        state = init_state(params)
+        params, state, step_loss = step(params, state, batch)
+        # the step's own forward and backward (atomics: no fixed order)
+        torch.testing.assert_close(step_loss, loss, rtol=1e-6, atol=0)
+        return (loss.cpu(), [g.cpu() for g in tr.leaves(grads)],
+                [t.detach().cpu() for t in
+                 tr.leaves((params, state["m"], state["v"]))])
+    finally:
+        frontier.DEFAULT_DEVICE = pin
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["gin-tu", "graphsage-reddit"])
+def test_gnn_dist_smoke_step_on_card_equals_cpu(cuda, no_tf32, arch_id):
+    """``sharded_train_step`` on a 1 x 1 NCCL mesh against the same on a
+    1 x 1 gloo mesh on the CPU, float32 smoke config, same weights and
+    batch: loss (1e-5 relative), every gradient leaf (1e-5 of its largest
+    entry), then one step each from its own gradients: parameters (1e-6),
+    m (1e-5, linear in the gradients) and v (2e-5, quadratic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import gnn
+
+    arch = get_config(arch_id)
+    cfg = arch.smoke_config()
+    host = gnn.init_params(cfg, torch.Generator().manual_seed(0))
+    np_batch = arch.smoke_batch(seed=1)
+    lc, gc, sc = _sharded_run(arch_id, "cpu", host, np_batch)
+    reset_launch_counts()
+    lg, gg, sg = _sharded_run(arch_id, cuda, host, np_batch)
+    assert launch_counts() == {}
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(gg, gc):
+        _rel(a, b, 1e-5)
+    n = len(sc) // 3
+    for i, (a, b) in enumerate(zip(sg, sc)):
+        _rel(a, b, (1e-6, 1e-5, 2e-5)[i // n])
+
+
+@pytest.mark.cuda
+def test_pattern_smoke_on_card(cuda):
+    """``rig_gm``'s smoke on the card: ``TorchGM`` through ``bitmm`` and
+    ``gather_expand``, each count equal to the host ``match``'s."""
+    from repro_torch.configs import get_config
+
+    for seed in range(4):
+        reset_launch_counts()
+        out = get_config("rig_gm").smoke(seed)
+        assert out["finite"] and out["count"] == out["host_count"], out
+        counts = launch_counts()
+        assert counts.get("bitmm") and counts.get("gather_expand"), counts
+
+
+@pytest.mark.cuda
+def test_closure_step_kernel_power_law_32k(cuda):
+    """R of 32,768 nodes (1,024 lanes, 128 MiB): the email profile's
+    adjacency transposed (each row a node's in-neighbours, so its in-degree
+    hubs are rows past the list capacity) ORed with the identity, held to
+    the plain version whole (its bf16 unpack is 2 GiB)."""
+    from repro_torch.data.graphs import random_labeled_graph
+
+    n = 32_768
+    g = random_labeled_graph(n, avg_degree=420_045 / 265_214, n_labels=20,
+                             kind="powerlaw", seed=0)
+    ids = np.arange(n)
+    r = packed.from_pairs(np.concatenate([g.edges[:, 1], ids]),
+                          np.concatenate([g.edges[:, 0], ids]), (n, n),
+                          device=cuda)
+    cnt, _ = row_lists(r)
+    assert int((cnt > LIST_CAP).sum()) >= 10 and int(cnt.max()) > 1000
+    reset_launch_counts()
+    got = closure_step(r)
+    assert launch_counts() == {"closure_step": 1}
+    assert torch.equal(got, ref.closure_step_ref(r))

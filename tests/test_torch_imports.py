@@ -59,6 +59,9 @@ import repro_torch.data.sampler, repro_torch.data.gnn_data
 import repro_torch.data.recsys_data
 gnn = get_config("graphsage-reddit").smoke(seed=0, device="cpu")
 assert gnn["finite"], gnn
+import repro_torch.models.gnn_dist, repro_torch.configs.pattern
+pattern = get_config("rig_gm").smoke(seed=0, device="cpu")
+assert pattern["finite"], pattern
 from repro_torch.data.graphs import random_labeled_graph
 from repro_torch.data.queries import random_query_from_graph
 g = random_labeled_graph(50, avg_degree=2.5, n_labels=3, seed=1)

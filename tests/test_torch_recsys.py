@@ -28,7 +28,8 @@ from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.data import recsys_data as rrd  # noqa: E402
 from repro.models import recsys as rdin  # noqa: E402
 from repro.train import optimizer as ropt  # noqa: E402
-from repro_torch.configs import all_arch_ids, get_config  # noqa: E402
+from repro_torch.configs import (ASSIGNED, all_arch_ids,  # noqa: E402
+                                 get_config)
 from repro_torch.convert import (adamw_state_from_numpy,  # noqa: E402
                                  params_from_numpy)
 from repro_torch.data import recsys_data as prd  # noqa: E402
@@ -318,8 +319,9 @@ def test_arch_smoke_runs_on_cpu():
 
 
 def test_registry_resolves_the_ten_archs():
-    ids = all_arch_ids()
-    assert ids == ref_arch_ids(include_pattern=False)
+    ids = all_arch_ids(include_pattern=False)
+    assert ids == ref_arch_ids(include_pattern=False) == ASSIGNED
+    assert all_arch_ids() == ids + ["rig_gm"]
     for arch_id in ids:
         assert get_config(arch_id).arch_id == arch_id
         assert get_config(arch_id).family == ref_get_config(arch_id).family

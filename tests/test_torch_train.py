@@ -446,9 +446,25 @@ def test_launch_train_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _main(["--steps", "1", "--ckpt-dir", str(tmp_path)], monkeypatch)
     assert not os.listdir(tmp_path)
-    with pytest.raises(KeyError, match="the dry-run slice"):
+    with pytest.raises(KeyError, match="'pattern'"):
         _main(["--arch", "rig_gm", "--device", "cpu", "--ckpt-dir",
                str(tmp_path)], monkeypatch)
+    assert not os.listdir(tmp_path)
+
+
+def test_launch_train_rig_gm_fails_as_reference(ref, tmp_path, monkeypatch):
+    """``rig_gm`` trains nothing: both launchers raise the same
+    ``KeyError`` from their family dispatch, before any state exists."""
+    from repro.launch import train as ref_launch
+
+    argv = ["--arch", "rig_gm", "--ckpt-dir", str(tmp_path)]
+    monkeypatch.setattr("sys.argv", ["train"] + argv)
+    with pytest.raises(KeyError) as want:
+        ref_launch.main()
+    with pytest.raises(KeyError) as got:
+        _main(argv + ["--device", "cpu"], monkeypatch)
+    assert got.value.args == want.value.args == ("pattern",)
+    assert not os.listdir(tmp_path)
 
 
 def test_init_params_device_follows_generator():
