@@ -49,7 +49,9 @@
    answer must be the same, with its 18 ``bitmm`` launches and the whole
    call timed by CUDA events) and each collective's calls and payload
    bytes as counted from the tensors passed (the bytes on the wire, a
-   ring-model estimate, in the log only); destroys the group.
+   ring-model estimate, in the log only); runs ``rig_gm``'s dry-run unit
+   at the batch of 8 once for real on the same mesh (its FLOPs,
+   collectives and peak, for the dry-run phase); destroys the group.
 5. Closure path, on the same graph object, after the serve path's engine
    is freed: ``TorchGM(graph, closure_on_device=True)`` squares the
    reachability matrix out of the uploaded adjacency with 17
@@ -110,7 +112,8 @@
    T = 1,024; each step fenced and timed (seconds, tokens/s, 6·N·D model
    FLOP/s and its share of the 989 TFLOP/s dense bf16 peak of NVIDIA's
    H100 SXM data sheet), a fifth split into forward + backward and
-   update, and the peak of ``torch.cuda.max_memory_allocated``.  Every
+   update, a sixth under ``FlopCounterMode`` (its FLOPs, for the dry-run
+   phase), and the peak of ``torch.cuda.max_memory_allocated``.  Every
    loss and gradient norm must be finite and the first loss within
    (ln V, ln V + 1); 8 ``decode_step`` calls from an empty cache must
    equal ``forward``'s logits at the same positions (max |err| <= 0.25,
@@ -190,9 +193,25 @@
    its set bits before and after and its peak memory.  The phase's
    launches join the ``kernels`` line (``launches_by_path["pattern"]``;
    ``closure_step``'s row takes a ``closure_256k`` entry).
-13. Prints the ``lm``, ``gnn``, ``gnn_dist`` and ``pattern`` JSON lines,
-   the ``kernels`` JSON line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+13. The dry-run units (``launch.dryrun``: each unit traced once on
+   ``meta`` tensors over a fake process group, nothing allocated, no
+   kernel launched; the launch counts must stay zero): ``gm_serve_step``'s
+   unit at the sharded path's shape (the serve path's graph, the batch of
+   8), which the sharded path also ran for real on its 1 x 1 NCCL mesh
+   (``FlopCounterMode``, ``Collectives``, peak memory), traced on a fake
+   1 x 1 group: its collectives' calls and payload bytes and its FLOPs
+   must equal the real run's, and its peak and its temporaries (the peak
+   less the arguments) each be within 20% of the real run's;
+   qwen1.5-4b's train unit at the LM path's shape (B = 2, T = 1,024,
+   1 x 1): its FLOPs must equal ``FlopCounterMode`` over one real step of
+   the LM path and its peak be within 20% of the LM path's
+   ``max_memory_allocated``; the H100 model's bound for that step beside
+   its measured time (printed); ``rig_gm`` ``serve_1m`` and qwen1.5-4b
+   ``train_4k`` traced on the fake (16, 16) production mesh, with their
+   roofline terms (printed).
+14. Prints the ``lm``, ``gnn``, ``gnn_dist``, ``pattern`` and ``dryrun``
+   JSON lines, the ``kernels`` JSON line, the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, as does a spill that ptxas
 reports in any instantiation of ``gather_intersect_kernel`` or
@@ -865,7 +884,7 @@ def sharded_path(torch, card: str, dg, queries):
                                              dg.stack.shape):
             raise AssertionError("the 1 x 1 mesh's tile is not the graph's "
                                  "own stack")
-        total, info, first = {}, [], None
+        total, info, first, unit_real = {}, [], None, None
         for lo, hi, pack_y in ((0, BATCH, False),
                                (BATCH, len(queries), True)):
             # the queries as the engine hands them to the device
@@ -943,6 +962,7 @@ def sharded_path(torch, card: str, dg, queries):
                 # with the graph
                 x = simulation.initial_fb(dg, qts)
                 first = (mats[0].clone(), x.reshape(-1, x.shape[-1]).t())
+                unit_real = serve_unit_real(torch, card, dg, qts, mesh)
             coll_bytes = coll.summary()
             info.append({"requests": [lo, hi], "pack_y": pack_y,
                          "seconds": step_s, "warm_seconds": warm_s,
@@ -972,7 +992,54 @@ def sharded_path(torch, card: str, dg, queries):
         f"tile {list(mats.shape)} (the graph's own stack); group set-up "
         f"{setup_s:.4f} s; {time.perf_counter() - t0:.1f} s in all")
     log(f"sharded path launches: {json.dumps(total, sort_keys=True)}")
-    return total, first, {"setup_s": setup_s, "batches": info}
+    return total, first, {"setup_s": setup_s, "batches": info,
+                          "unit": unit_real}
+
+
+def serve_unit_shape(n_pad: int) -> dict:
+    """The shape of ``gm_serve_step``'s dry-run unit at the sharded path's
+    batch of 8: the serve path's graph, 4 passes, top-K 4,096."""
+    return dict(kind="serve", n_pad=n_pad, batch=BATCH,
+                passes=SHARDED_PASSES, top_k=TOP_K)
+
+
+def serve_unit_real(torch, card: str, dg, qts, mesh) -> dict:
+    """``rig_gm``'s serve unit at the serve path's graph and the batch of
+    8 (``serve_unit_shape``), built by ``build_dryrun`` on the 1 x 1 NCCL
+    mesh and run for real once, outside the counted runs: its FLOPs
+    (``FlopCounterMode``), its collectives' calls and payload bytes
+    (``Collectives``) and its peak (its arguments' bytes plus the most
+    allocated above what the call found), for the dry-run phase to hold
+    its trace to."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import argument_bytes, call, place
+
+    shape = serve_unit_shape(dg.n_pad)
+    unit = get_config("rig_gm").build_dryrun(shape, mesh)
+    args = place(unit, (dg.stack, dg.labels, qts))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counter = FlopCounterMode(display=False)
+    coll = Collectives()
+    t0 = time.perf_counter()
+    try:
+        with counter:
+            call(unit, args)
+        torch.cuda.synchronize()
+    finally:
+        coll.restore()
+    out = {"shape": shape, "seconds": time.perf_counter() - t0,
+           "flops": counter.get_total_flops(),
+           "collectives": coll.summary(),
+           "argument_bytes": argument_bytes(args),
+           "peak_bytes": argument_bytes(args)
+           + torch.cuda.max_memory_allocated() - base}
+    log(f"[{card}] gm_serve_step's dry-run unit run for real: "
+        f"{json.dumps(out, sort_keys=True)}")
+    return out
 
 
 class ClosureSteps:
@@ -1327,6 +1394,13 @@ def lm_train(torch, card: str, arch_id: str, n_layers, steps: int):
     out["split_s"] = {"forward_backward": t1 - t0,
                       "update": time.perf_counter() - t1}
     del loss, grads
+    # the FLOPs of one step as FlopCounterMode counts them, for the dry-run
+    # phase to hold its trace of the same step to
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, _ = step(state, batch)
+    out["step_flops"] = counter.get_total_flops()
     log(f"[{card}] {arch_id}: {cfg.n_params():,} parameters, init "
         f"{init_s:.2f} s, peak memory {out['peak_bytes']:,} B above the "
         f"{base:,} B found allocated; a further "
@@ -2465,6 +2539,118 @@ def pattern_path(torch, np, card: str, rows) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ dry-run
+# a trace's peak of live bytes against the card's measured peak
+DRYRUN_PEAK_REL = 0.20
+# the production cells the phase traces on the fake (16, 16) mesh
+DRYRUN_CELLS = (("rig_gm", "serve_1m"), ("qwen1.5-4b", "train_4k"))
+
+
+def dryrun_record(card: str, arch_id: str, shape, mesh_shape) -> dict:
+    """One unit traced on ``meta`` tensors over a fake process group of
+    ``mesh_shape`` (``launch.dryrun.trace``), with its H100 roofline
+    terms (``launch.hillclimb.roofline``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = get_config(arch_id)
+    n_dev = math.prod(mesh_shape)
+    with dryrun.fake_group(n_dev):
+        t = dryrun.trace(cfg.build_dryrun(shape, make_local_mesh(
+            *mesh_shape)))
+    t["roofline"] = hillclimb.roofline(t, cfg.model_flops(shape), n_dev)
+    t["collectives"] = {k: v for k, v in t["collectives"].items()
+                        if v["count"]}
+    log(f"[{card}] dry-run {arch_id} {shape} on {mesh_shape}: "
+        f"{json.dumps(t, sort_keys=True)}")
+    return t
+
+
+def dryrun_path(torch, card: str, lm: dict, serve_real: dict) -> dict:
+    """The dry-run units (``launch.dryrun``) held to the card.  (a)
+    ``gm_serve_step``'s unit at the sharded path's shape traced on a fake
+    1 x 1 group: collectives (calls, payload bytes) and FLOPs equal to the
+    sharded path's real run of the same unit, peak and temporaries (the
+    peak less the arguments) each within ``DRYRUN_PEAK_REL`` of its
+    measured ones; (b) qwen1.5-4b's train unit
+    at the LM path's shape (B = 2, T = 1,024) traced on a fake 1 x 1
+    group: FLOPs equal to ``FlopCounterMode`` over one real step of the LM
+    path, peak within ``DRYRUN_PEAK_REL`` of the LM path's
+    ``max_memory_allocated``, and the H100 model's bound beside the
+    measured step (printed, not held); (c) ``DRYRUN_CELLS`` traced on the
+    fake (16, 16) production mesh, printed.  No trace may launch a
+    kernel (launch counts reset just before and read just after)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()               # just before the traces
+    out = {"card": card}
+
+    t = dryrun_record(card, "rig_gm", serve_real["shape"], (1, 1))
+    census = {k.replace("-", "_"): [v["count"], v["payload_bytes"]]
+              for k, v in t["collectives"].items()}
+    peak = t["memory"]["peak_size_in_bytes"]
+    # the arguments are most of the peak (the stack): the temporaries,
+    # what the trace adds on top of them, are held apart
+    temp = t["memory"]["temp_size_in_bytes"]
+    real_temp = serve_real["peak_bytes"] - serve_real["argument_bytes"]
+    out["serve_unit"] = {
+        "traced": t, "real": serve_real,
+        "peak_rel_err": peak / serve_real["peak_bytes"] - 1,
+        "temp_rel_err": temp / real_temp - 1}
+    checks = {"census": census == serve_real["collectives"],
+              "flops": t["flops"] == serve_real["flops"],
+              "peak": abs(out["serve_unit"]["peak_rel_err"])
+              <= DRYRUN_PEAK_REL,
+              "temporaries": abs(out["serve_unit"]["temp_rel_err"])
+              <= DRYRUN_PEAK_REL}
+    log(f"[{card}] dry-run serve unit against its real run: census "
+        f"{census} / {serve_real['collectives']}, FLOPs {t['flops']:,} / "
+        f"{serve_real['flops']:,}, peak {peak:,} / "
+        f"{serve_real['peak_bytes']:,} B, temporaries {temp:,} / "
+        f"{real_temp:,} B: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the serve unit's trace differs from its "
+                             f"real run: {checks}")
+
+    qwen = lm["qwen1.5-4b"]
+    shape = dict(kind="train", seq_len=LM_SEQ, global_batch=LM_BATCH)
+    t = dryrun_record(card, "qwen1.5-4b", shape, (1, 1))
+    peak = t["memory"]["peak_size_in_bytes"]
+    step_s = statistics.median(qwen["step_s"])
+    bound_s = t["roofline"]["bound_s"]
+    out["lm_unit"] = {
+        "traced": t, "step_flops": qwen["step_flops"],
+        "peak_bytes": qwen["peak_bytes"],
+        "peak_rel_err": peak / qwen["peak_bytes"] - 1,
+        "step_s": step_s, "bound_s": bound_s,
+        "bound_over_step": bound_s / step_s}
+    checks = {"flops": t["flops"] == qwen["step_flops"],
+              "peak": abs(out["lm_unit"]["peak_rel_err"])
+              <= DRYRUN_PEAK_REL}
+    log(f"[{card}] dry-run qwen1.5-4b train unit (B = {LM_BATCH}, T = "
+        f"{LM_SEQ}, 1 x 1) against the LM path: FLOPs {t['flops']:,} / "
+        f"{qwen['step_flops']:,}, peak {peak:,} / {qwen['peak_bytes']:,} B "
+        f"({100 * out['lm_unit']['peak_rel_err']:+.2f}%); H100 model bound "
+        f"{bound_s:.6f} s ({t['roofline']['dominant']}) against the "
+        f"measured step {step_s:.6f} s: {bound_s / step_s:.4f}: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the LM unit's trace differs from the LM "
+                             f"path: {checks}")
+
+    out["production"] = {}
+    for arch_id, shape in DRYRUN_CELLS:
+        out["production"][f"{arch_id}:{shape}"] = dryrun_record(
+            card, arch_id, shape, (16, 16))
+    launched = launch_counts()          # just after the traces
+    if any(launched.values()):
+        raise AssertionError(f"a traced unit launched kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{card}] dry-run phase {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 def bound(name: str, args, kw):
     """(bytes, operations) the call must move / do on these inputs."""
@@ -3227,8 +3413,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     pattern = pattern_path(torch, np, card, rows)
+    t2 = time.perf_counter()
+    dry = dryrun_path(torch, card, lm, sharded_info["unit"])
     log(f"[{card}] gnn_dist path {t1 - t0:.1f} s, pattern path "
-        f"{time.perf_counter() - t1:.1f} s")
+        f"{t2 - t1:.1f} s, dry-run phase {time.perf_counter() - t2:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -3240,6 +3428,7 @@ def main() -> int:
     print(json.dumps({"gnn": gnn}))
     print(json.dumps({"gnn_dist": gnn_dist}))
     print(json.dumps({"pattern": pattern}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": rows}))
     if spilled:
         raise AssertionError(f"ptxas reports spills in {spilled}")

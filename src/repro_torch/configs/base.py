@@ -10,6 +10,12 @@ Every arch exposes:
                        6·N_active·D MoE for training; per-family formulas
                        for GNN/recsys).
 
+* ``build_dryrun``   — a :class:`DryRunUnit` for a (shape, mesh): the
+                       step function, its arguments as ``meta`` tensors of
+                       their global shapes and their placements on the
+                       mesh; ``repro_torch.launch.dryrun`` traces it on
+                       ``meta`` tensors over a fake process group.
+
 GNN and recsys archs also give ``_abstract_batch(shape)``: the batch a
 shape implies, as ``meta`` tensors (shapes and dtypes, no storage).
 """
@@ -17,16 +23,20 @@ shape implies, as ``meta`` tensors (shapes and dtypes, no storage).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..dist import sharding as shd
 from ..models import gnn as gnn_mod
 from ..models import recsys as din_mod
 from ..models import transformer as tf_mod
 from ..torchgm.frontier import resolve
 from ..train import optimizer as opt_mod
+from ..train import tree as tr
 
 OPT = opt_mod.AdamWConfig()
 Shape = Union[str, Dict[str, Any]]
@@ -34,6 +44,14 @@ Shape = Union[str, Dict[str, Any]]
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _shape(shapes, shape) -> Dict[str, Any]:
+    return shapes[shape] if isinstance(shape, str) else shape
+
+
+def _shape_name(shape) -> str:
+    return shape if isinstance(shape, str) else "custom"
 
 
 def _pad512(n: int) -> int:
@@ -59,10 +77,71 @@ def _train_step_finite(loss_fn, params, batch) -> Dict[str, Any]:
             and bool(torch.isfinite(m["grad_norm"]))}
 
 
+@dataclass
+class DryRunUnit:
+    """One (arch, shape, mesh) cell of the dry-run.
+
+    ``args`` are the step's arguments as trees (dicts, lists, tuples,
+    ``QueryTensor``) of ``meta`` tensors of their **global** shapes and
+    dtypes; ``placements`` mirrors them, one tuple of ``DTensor``
+    placements on ``mesh`` per leaf.  A runner makes each leaf a tensor
+    (``meta`` for a trace, or real) and calls ``step_fn(*args)`` as one
+    rank: with ``local`` False each leaf is a ``DTensor`` of those
+    placements (the step's collectives are DTensor's redistributions);
+    with ``local`` True each leaf is the rank's own block of the global
+    tensor, a plain tensor, and the step issues its collectives itself
+    (the reference's ``shard_map`` bodies).  ``donate`` records the
+    arguments the reference donates; the port's steps update those in
+    place (its AdamW), which is what donation buys under XLA."""
+    name: str
+    step_fn: Callable
+    args: Tuple[Any, ...]
+    placements: Tuple[Any, ...]
+    mesh: Any
+    donate: Tuple[int, ...] = ()
+    local: bool = False
+
+
+def _f32_like(tree):
+    return tr.map_tree(lambda p: _meta(p.shape, torch.float32), tree)
+
+
+def _opt_args(params, pspecs, mesh):
+    """AdamW state of ``params`` as ``meta`` tensors, and its placements."""
+    state = {"step": _meta((), torch.int32), "m": _f32_like(params),
+             "v": _f32_like(params)}
+    specs = {"step": (), "m": pspecs, "v": pspecs}
+    return state, shd.placements_tree(specs, mesh)
+
+
+def _trainable(params):
+    """``params`` with every leaf requiring grad (in place: the arguments
+    of a dry-run unit are its own leaves)."""
+    return tr.map_tree(lambda p: p if p.requires_grad
+                       else p.requires_grad_(), params)
+
+
+def _train_step(loss_fn):
+    """The port's training step on one tree of parameters: one forward
+    and backward, then the default AdamW, in place
+    (``train.optimizer.make_train_step``) -> (params, state, loss)."""
+    step = opt_mod.make_train_step(loss_fn, OPT)
+
+    def train_step(params, opt_state, batch):
+        params, opt_state, metrics = step(_trainable(params), opt_state,
+                                          batch)
+        return params, opt_state, metrics["loss"]
+
+    return train_step
+
+
 class ArchConfig:
     arch_id: str = ""
     family: str = ""
     shapes: Dict[str, Dict[str, Any]] = {}
+
+    def build_dryrun(self, shape, mesh, **kw) -> DryRunUnit:
+        raise NotImplementedError
 
     def smoke(self, seed: int = 0, device=None) -> Dict[str, Any]:
         """Run one reduced forward/train step; return metrics for asserts."""
@@ -120,6 +199,116 @@ class LMArch(ArchConfig):
                 "decode_shape": tuple(dec_logits.shape),
                 **_train_step_finite(
                     lambda p, b: tf_mod.loss_fn(p, b, cfg), params, batch)}
+
+    # ----------------------------------------------------------- dry-run
+    def _mesh_cfg(self, mesh) -> tf_mod.LMConfig:
+        """The config with its heads padded to a multiple of the mesh's
+        ``model`` degree, the kv heads to a divisor of that count."""
+        tp = shd.axis_size(mesh, "model")
+        c = self.cfg
+        hq = int(math.ceil(c.n_heads / tp) * tp)
+        hkv = c.n_kv
+        if hq % hkv:                     # keep GQA grouping integral
+            hkv = next(d for d in range(hkv, hq + 1) if hq % d == 0)
+        return dataclasses.replace(c, pad_heads_to=hq, pad_kv_to=hkv)
+
+    def build_dryrun(self, shape: Shape, mesh, *,
+                     layers_override: Optional[int] = None,
+                     unroll: bool = False,
+                     variant: str = "baseline") -> DryRunUnit:
+        """``layers_override`` (with ``unroll``, which the port holds and
+        ignores) is the reference's cost-calibration mode: units of 2 and
+        4 layers, extrapolated to the full depth
+        (``launch.dryrun.lm_calibrated_cost``).
+
+        ``variant`` names options as the reference reads them: ``flash``
+        (chunked online-softmax attention), ``chunkloss`` (streamed
+        lm_head cross-entropy), ``wsc`` (activations' batch pinned to the
+        batch axes at each layer boundary); ``ckptchunk`` is the port's
+        own flash attention, whose chunks are always recomputed in the
+        backward.
+        """
+        sp = _shape(self.shapes, shape)
+        cfg = self._mesh_cfg(mesh)
+        if variant.startswith("flash"):
+            cfg = dataclasses.replace(cfg, flash_attention=True)
+        if "chunkloss" in variant:
+            cfg = dataclasses.replace(cfg, chunked_loss=True, loss_chunk=512)
+        if "wsc" in variant:
+            cfg = dataclasses.replace(
+                cfg, shard_activations=shd.batch_axes(mesh))
+        if layers_override is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers_override,
+                                      unroll=unroll)
+        pspecs = shd.lm_param_specs(cfg, mesh)
+        # kv projections: shard out-dim only when the padded kv head count
+        # divides the TP degree (else replicate — GQA kv is small)
+        tp = shd.axis_size(mesh, "model")
+        if cfg.hkv % tp:
+            pspecs["layers"]["wk"] = (None, "data", None)
+            pspecs["layers"]["wv"] = (None, "data", None)
+            if cfg.qkv_bias:
+                pspecs["layers"]["bk"] = (None, None)
+                pspecs["layers"]["bv"] = (None, None)
+        params = tf_mod.abstract_params(cfg)
+        ppl = shd.placements_tree(pspecs, mesh)
+        b = sp["global_batch"]
+        name = f"{self.arch_id}:{_shape_name(shape)}"
+        i32 = torch.int32
+
+        if sp["kind"] == "train":
+            opt, opl = _opt_args(params, pspecs, mesh)
+            batch = {"tokens": _meta((b, sp["seq_len"]), i32),
+                     "labels": _meta((b, sp["seq_len"]), i32)}
+            bpl = shd.placements_tree(shd.lm_batch_specs(mesh), mesh)
+            return DryRunUnit(
+                name=name,
+                step_fn=_train_step(lambda p, bt: tf_mod.loss_fn(p, bt, cfg)),
+                args=(params, opt, batch), placements=(ppl, opl, bpl),
+                mesh=mesh, donate=(0, 1))
+
+        baxes = shd.batch_axes(mesh)
+        if sp["kind"] == "prefill":
+            batch = {"tokens": _meta((b, sp["seq_len"]), i32)}
+            bpl = {"tokens": shd.placements((baxes, None), mesh)}
+
+            @torch.no_grad()
+            def prefill_step(params, batch):
+                logits = tf_mod.forward(params, batch["tokens"], cfg)
+                return logits[:, -1, :]        # serving returns last-token
+
+            return DryRunUnit(name=name, step_fn=prefill_step,
+                              args=(params, batch), placements=(ppl, bpl),
+                              mesh=mesh)
+
+        # decode: one new token against a seq_len KV cache
+        kv = (cfg.n_layers, b, sp["seq_len"], cfg.hkv, cfg.head_dim)
+        cache = {"k": _meta(kv, cfg.dtype), "v": _meta(kv, cfg.dtype),
+                 "length": _meta((), i32)}
+        n_data = int(np.prod([shd.axis_size(mesh, a) for a in baxes]))
+        kv_heads_ax = "model" if cfg.hkv % tp == 0 else None
+        by_batch = b % n_data == 0 and b >= n_data
+        if by_batch:
+            cspec = (None, baxes, None if kv_heads_ax else "model",
+                     kv_heads_ax, None)
+        else:
+            # small-batch long-context: shard the KV sequence axis instead
+            cspec = (None, None, baxes + (() if kv_heads_ax else ("model",)),
+                     kv_heads_ax, None)
+        cpl = {"k": shd.placements(cspec, mesh),
+               "v": shd.placements(cspec, mesh),
+               "length": shd.placements((), mesh)}
+        tokens = {"tokens": _meta((b, 1), i32)}
+        tpl = {"tokens": shd.placements((baxes if by_batch else None, None),
+                                        mesh)}
+
+        @torch.no_grad()
+        def decode(params, cache, batch):
+            return tf_mod.decode_step(params, cache, batch["tokens"], cfg)
+
+        return DryRunUnit(name=name, step_fn=decode,
+                          args=(params, cache, tokens),
+                          placements=(ppl, cpl, tpl), mesh=mesh, donate=(1,))
 
     def model_flops(self, shape: Union[str, Dict[str, Any]]) -> float:
         """``shape``: a name of ``shapes`` or a dict of the same keys
@@ -254,6 +443,47 @@ class GNNArch(ArchConfig):
             batch.pop("labels")
         return batch, cfg
 
+    def build_dryrun(self, shape: Shape, mesh, *,
+                     variant: str = "baseline") -> DryRunUnit:
+        """The training step on the whole batch, its nodes and edges split
+        over the batch axes (``variant="shardmap"``: gin and sage through
+        ``models.gnn_dist``'s explicit step instead)."""
+        batch, cfg = self._abstract_batch(shape)
+        if variant == "shardmap" and cfg.arch in ("gin", "sage"):
+            return self._build_shardmap(shape, mesh, batch, cfg)
+        params = gnn_mod.abstract_params(cfg)
+        pspecs = shd.gnn_param_specs(cfg, mesh)
+        opt, opl = _opt_args(params, pspecs, mesh)
+        return DryRunUnit(
+            name=f"{self.arch_id}:{_shape_name(shape)}",
+            step_fn=_train_step(lambda p, b: gnn_mod.loss_fn(p, b, cfg)),
+            args=(params, opt, batch),
+            placements=(shd.placements_tree(pspecs, mesh), opl,
+                        shd.placements_tree(
+                            shd.gnn_batch_specs(mesh, batch), mesh)),
+            mesh=mesh, donate=(0, 1))
+
+    def _build_shardmap(self, shape: Shape, mesh, batch, cfg) -> DryRunUnit:
+        """Explicit message passing with destination-partitioned edges
+        (``models.gnn_dist.sharded_train_step``), run by each rank on its
+        own block of nodes and edges."""
+        from ..models import gnn_dist
+        step, bspec = gnn_dist.sharded_train_step(cfg, mesh, OPT)
+        batch = {k: v for k, v in batch.items() if k in bspec}
+        params = gnn_mod.abstract_params(cfg)
+        pspecs = shd.gnn_param_specs(cfg, mesh)
+        opt, opl = _opt_args(params, pspecs, mesh)
+
+        def shardmap_step(params, opt_state, batch):
+            return step(_trainable(params), opt_state, batch)
+
+        return DryRunUnit(
+            name=f"{self.arch_id}:{_shape_name(shape)}:shardmap",
+            step_fn=shardmap_step, args=(params, opt, batch),
+            placements=(shd.placements_tree(pspecs, mesh), opl,
+                        {k: shd.placements(bspec[k], mesh) for k in batch}),
+            mesh=mesh, donate=(0, 1), local=True)
+
     def model_flops(self, shape: Shape) -> float:
         """``shape``: a name of ``shapes`` or a dict of the same keys."""
         batch, cfg = self._abstract_batch(shape)
@@ -345,6 +575,49 @@ class DINArch(ArchConfig):
         if sp["kind"] == "train":
             batch["label"] = _meta((b,), f32)
         return batch
+
+    def build_dryrun(self, shape: Shape, mesh) -> DryRunUnit:
+        """Training, serving (``forward``) or retrieval scoring; the
+        tables row-split over ``model``, the batch over the batch axes
+        (retrieval: its candidates, 10^6 of them, split evenly on both
+        production meshes and in uneven blocks where a count does not
+        divide, while the one user is replicated)."""
+        sp = _shape(self.shapes, shape)
+        cfg = self.cfg
+        params = din_mod.abstract_params(cfg)
+        pspecs = shd.din_param_specs(cfg, mesh)
+        ppl = shd.placements_tree(pspecs, mesh)
+        batch = self._abstract_batch(shape)
+        bspecs = shd.din_batch_specs(mesh, batch)
+        name = f"{self.arch_id}:{_shape_name(shape)}"
+        if sp["kind"] == "retrieval":
+            baxes = shd.batch_axes(mesh)
+            bspecs = {k: ((baxes,) if k.startswith("cand_")
+                          else (None,) * v.dim())
+                      for k, v in batch.items()}
+
+            @torch.no_grad()
+            def retrieval(params, batch):
+                return din_mod.retrieval_scores(params, batch, cfg)
+
+            return DryRunUnit(name=name, step_fn=retrieval,
+                              args=(params, batch),
+                              placements=(ppl, shd.placements_tree(
+                                  bspecs, mesh)), mesh=mesh)
+        bpl = shd.placements_tree(bspecs, mesh)
+        if sp["kind"] == "serve":
+            @torch.no_grad()
+            def serve(params, batch):
+                return din_mod.forward(params, batch, cfg)
+
+            return DryRunUnit(name=name, step_fn=serve, args=(params, batch),
+                              placements=(ppl, bpl), mesh=mesh)
+        opt, opl = _opt_args(params, pspecs, mesh)
+        return DryRunUnit(
+            name=name,
+            step_fn=_train_step(lambda p, b: din_mod.loss_fn(p, b, cfg)),
+            args=(params, opt, batch), placements=(ppl, opl, bpl),
+            mesh=mesh, donate=(0, 1))
 
     def model_flops(self, shape: Shape) -> float:
         """``shape``: a name of ``shapes`` or a dict of the same keys."""

@@ -11,16 +11,20 @@ Shapes (the paper-technique cells, beside the ten assigned archs):
                  2^18 x 2^13 lanes, 8 GiB);
 * sim_pass_1m  — a single simulation pass.
 
-``build_dryrun`` is not ported yet: it comes with the dry-run units of the
-port (fake tensors, DTensor placements and a fake process group), designed
-once for all four families.
+``build_dryrun`` gives each shape's unit on a mesh: the steps of
+:mod:`repro_torch.torchgm.distributed` (and the closure round), each run
+by every rank on its own tile with explicit collectives, as the
+reference's ``shard_map`` bodies are.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from .base import ArchConfig
+import torch
+
+from ..dist import sharding as shd
+from .base import ArchConfig, DryRunUnit, _meta, _shape, _shape_name
 
 MAX_Q, MAX_E = 8, 16
 
@@ -55,15 +59,86 @@ class PatternArch(ArchConfig):
         return {"count": dev.count, "host_count": host.count,
                 "finite": dev.count == host.count and not dev.overflowed}
 
-    def build_dryrun(self, shape: str, mesh, **_):
-        raise NotImplementedError(
-            f"{self.arch_id}:{shape}: the dry-run unit is not ported yet; it "
-            f"comes with part 9.3 of the port (ROADMAP.md, Queue 1: the "
-            f"dry-run units on fake tensors, DTensor placements and a fake "
-            f"process group)")
+    def build_dryrun(self, shape, mesh, *, variant: str = "baseline",
+                     unroll: bool = False) -> DryRunUnit:
+        """The unit of ``shape`` (a name of ``shapes`` or a dict of the
+        same keys) on ``mesh``.  Variants: ``packy`` packs Y before its
+        all-gather (``pack_y``); ``b128`` takes a batch of 128 queries;
+        ``best`` both.  ``bk1024`` and ``scan-artifact`` (and ``unroll``)
+        set the chunking of the reference's XLA blocked product
+        (``block_k``, a scan or an unrolled loop), which the port replaced
+        with the ``bitmm`` kernel: the port has no such knob, so those
+        units equal the baseline's.
 
-    def model_flops(self, shape: str) -> float:
-        sp = self.shapes[shape]
+        ``serve`` / ``sim``: ``gm_serve_step`` / one pass of
+        ``sharded_double_simulation`` with top-K 4,096 (a shape dict may
+        set ``top_k``); the packed
+        matrices' rows split over the batch axes and their lanes over
+        ``model``, the labels over ``model``, the queries replicated.
+
+        ``closure``: one round ``R' = R | (R·R > 0)`` of the packed R,
+        rows over the batch axes and lanes over ``model``, in its
+        simplest exact form on the ``closure_step`` kernel: all-gather R
+        (lanes over ``model``, then rows over ``data`` and ``pod``), one
+        ``closure_step`` of the whole R, and this rank's tile of R'.  The
+        reference squares the unpacked R with a bf16 matmul that XLA
+        partitions; the kernel's row-OR form needs all of R on every rank
+        (row i of R' ORs the rows that row i lists), so each rank does
+        the whole round's operations, and the manifest counts them as
+        they are."""
+        from ..torchgm import distributed as tdist
+        from ..torchgm.encoding import QueryTensor
+
+        sp = dict(_shape(self.shapes, shape))
+        if variant in ("b128", "best"):
+            sp["batch"] = 128
+        pack_y = variant in ("packy", "best")
+        n_pad = sp["n_pad"]
+        name = f"{self.arch_id}:{_shape_name(shape)}"
+        row_axes = shd.batch_axes(mesh)
+
+        if sp["kind"] == "closure":
+            r = _meta((n_pad, n_pad // 32), torch.int32)
+
+            def closure_round(r_tile):
+                return _closure_round(r_tile, mesh)
+
+            return DryRunUnit(
+                name=name, step_fn=closure_round, args=(r,),
+                placements=(shd.placements((row_axes, "model"), mesh),),
+                mesh=mesh, local=True)
+
+        specs = tdist.graph_specs(n_pad, mesh)
+        i32, b = torch.int32, sp["batch"]
+        qts = QueryTensor(
+            labels=_meta((b, MAX_Q), i32), edge_src=_meta((b, MAX_E), i32),
+            edge_dst=_meta((b, MAX_E), i32),
+            edge_kind=_meta((b, MAX_E), i32), n_nodes=_meta((b,), i32),
+            n_edges=_meta((b,), i32))
+        rep = shd.placements((), mesh)
+        qpl = QueryTensor(labels=rep, edge_src=rep, edge_dst=rep,
+                          edge_kind=rep, n_nodes=rep, n_edges=rep)
+
+        if sp["kind"] == "sim":
+            def step(mats, labels, qts):
+                return tdist.sharded_double_simulation(
+                    mats, labels, qts, mesh, n_passes=1, pack_y=pack_y)
+        else:
+            def step(mats, labels, qts):
+                return tdist.gm_serve_step(
+                    mats, labels, qts, mesh, n_passes=sp["passes"],
+                    top_k=sp.get("top_k", 4096), pack_y=pack_y)
+
+        return DryRunUnit(
+            name=name, step_fn=step,
+            args=(_meta(specs.mats.shape, specs.mats.dtype),
+                  _meta(specs.labels.shape, specs.labels.dtype), qts),
+            placements=(shd.placements(specs.mats.axes, mesh),
+                        shd.placements(specs.labels.axes, mesh), qpl),
+            mesh=mesh, local=True)
+
+    def model_flops(self, shape) -> float:
+        sp = _shape(self.shapes, shape)
         n = sp["n_pad"]
         if sp["kind"] == "closure":
             return 2.0 * n * n * n
@@ -73,3 +148,23 @@ class PatternArch(ArchConfig):
         per_pass = 4 * 2.0 * n * n * (b * MAX_Q)
         extra = 2 * 2.0 * n * n * (b * MAX_Q) if sp["kind"] == "serve" else 0
         return passes * per_pass + extra
+
+
+def _closure_round(r_tile: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's tile of ``R | (R·R > 0)`` from its tile of R (rows over
+    the batch axes, lanes over ``model``): the whole R all-gathered, one
+    ``closure_step``, the tile cut out."""
+    from ..kernels import ops
+    from ..torchgm.distributed import _all_gather
+
+    rows_l, w_l = r_tile.shape
+    r = _all_gather(r_tile, mesh.get_group("model"), 1)
+    for ax in reversed(shd.batch_axes(mesh)):      # data, then pod
+        r = _all_gather(r, mesh.get_group(ax), 0)
+    row = 0
+    for ax in shd.batch_axes(mesh):                # pod-major row block
+        row = row * shd.axis_size(mesh, ax) + mesh.get_local_rank(ax)
+    col = mesh.get_local_rank("model")
+    out = ops.closure_step(r)
+    return out[row * rows_l:(row + 1) * rows_l,
+               col * w_l:(col + 1) * w_l].contiguous()

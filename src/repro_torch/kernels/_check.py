@@ -24,7 +24,7 @@ def same_device(*ts: torch.Tensor) -> torch.device:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and "
                              f"{t.device}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build, _check
 from .ref import bitmm_ref, check_binary
@@ -59,21 +60,58 @@ def bitmm(a_words: torch.Tensor, x: torch.Tensor, *,
     """a_words: int32 lanes (M, W); x: 0/1 (K, B) of any dtype and any
     strides, with ``32 (W - 1) < K <= 32 W`` (bits of A at column K and
     above do not count) -> (M, B) bool under ``threshold``, else float32
-    counts.  Raises ``ValueError`` on an X that is not 0/1."""
+    counts.  Raises ``ValueError`` on an X that is not 0/1.
+
+    The call is the operator ``repro_torch::bitmm``, so that fake and
+    ``meta`` tensors trace it (its fake gives the output's shape and
+    dtype, and counts no launch) and ``FlopCounterMode`` counts the
+    kernel's own operations (:func:`bitmm_flops`)."""
     _check.lanes(a_words, "a_words", 2)
     if not isinstance(x, torch.Tensor) or x.dim() != 2:
         raise ValueError("x must be a 2-D tensor (K, B)")
     dev = _check.same_device(a_words, x)
-    m, w = a_words.shape
-    k, b = x.shape
+    w = a_words.shape[1]
+    k = x.shape[0]
     if not 32 * (w - 1) < k <= 32 * w:
         raise ValueError(f"x has K={k} rows, a_words {w} lanes: need "
                          f"32*(W-1) < K <= 32*W")
-    check_binary(x)
-    if dev.type == "cpu":
-        return bitmm_ref(a_words, x, threshold=threshold)
-    if k >= _MAX_K:
+    if dev.type == "cuda" and k >= _MAX_K:
         raise ValueError(f"bitmm on the card takes K < 2^24, got {k}")
+    return _bitmm_op(a_words, x, threshold)
+
+
+@torch.library.custom_op("repro_torch::bitmm", mutates_args=())
+def _bitmm_op(a_words: torch.Tensor, x: torch.Tensor,
+              threshold: bool) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    check_binary(x)
+    if a_words.device.type == "cpu":
+        return bitmm_ref(a_words, x, threshold=threshold)
+    return _launch(a_words, x, threshold)
+
+
+@_bitmm_op.register_fake
+def _bitmm_fake(a_words, x, threshold):
+    return a_words.new_empty((a_words.shape[0], x.shape[1]),
+                             dtype=torch.bool if threshold
+                             else torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.bitmm)
+def bitmm_flops(a_shape, x_shape, threshold=True, *_, out_shape=None,
+                **__) -> int:
+    """The kernel's operations: the product as the int8 tensor cores do it,
+    ``2 * M * 32 W * B`` (a multiply-add is two), whatever K of the 32 W
+    columns X fills."""
+    m, w = a_shape
+    return 2 * m * 32 * w * x_shape[1]
+
+
+def _launch(a_words: torch.Tensor, x: torch.Tensor,
+            threshold: bool) -> torch.Tensor:
+    dev = a_words.device
+    m, w = a_words.shape
+    b = x.shape[1]
     out_dtype = torch.bool if threshold else torch.float32
     y = torch.empty((m, b), dtype=out_dtype, device=dev)
     if m == 0 or b == 0:

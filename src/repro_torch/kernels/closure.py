@@ -26,6 +26,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build, _check, packed
 from .ref import closure_row_lists_ref, closure_step_ref
@@ -76,15 +77,29 @@ def closure_step(r_words: torch.Tensor,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """r_words: int32 lanes (N, N/32) -> R | (R·R > 0), same shape,
     written into ``out`` when given (a buffer of the same shape and device
-    that does not overlap ``r_words``)."""
-    n, w = _square(r_words, "r_words", "closure_step")
+    that does not overlap ``r_words``).
+
+    The step is the operator ``repro_torch::closure_step`` (it writes
+    ``out``), so that fake and ``meta`` tensors trace it (counting no
+    launch) and ``FlopCounterMode`` counts the kernel's own operations
+    (:func:`closure_step_flops`)."""
+    _square(r_words, "r_words", "closure_step")
     out = _output(r_words, out, "r_words")
-    dev = _check.same_device(r_words)
-    if dev.type == "cpu":
+    _check.same_device(r_words)
+    _closure_step_op(r_words, out)
+    return out
+
+
+@torch.library.custom_op("repro_torch::closure_step", mutates_args=("out",))
+def _closure_step_op(r_words: torch.Tensor, out: torch.Tensor) -> None:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if r_words.device.type == "cpu":
         out.copy_(closure_step_ref(r_words))
-        return out
+        return
+    n, w = r_words.shape
     if n == 0:
-        return out
+        return
+    dev = r_words.device
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
     lists = torch.empty((n, LIST_CAP), dtype=torch.int32, device=dev)
     fn = _build.function("closure", "rt_closure_step",
@@ -94,7 +109,24 @@ def closure_step(r_words: torch.Tensor,
                         lists.data_ptr(), n, w, LIST_CAP, _stream(dev)),
                      "closure_step")
     _build.count_launch("closure_step")
-    return out
+
+
+@_closure_step_op.register_fake
+def _closure_step_fake(r_words, out):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.closure_step)
+def closure_step_flops(r_shape, out_shape_arg=None, *_, out_shape=None,
+                       **__) -> int:
+    """The kernel's word operations on an R whose every row is dense (more
+    than ``LIST_CAP`` set bits) and every bit set, the most it does:
+    each lane popcounted, copied and written (3 N W), and one OR per lane
+    of row k for each set bit (i, k) (N N W).  PERF.md's count for a
+    given R (``chip_smoke.closure_step_ops``) reads R's bits, which a
+    formula of shapes cannot."""
+    n, w = r_shape
+    return 3 * n * w + n * n * w
 
 
 def row_lists(r_words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -13,7 +13,9 @@ on the other backend raises, never a quiet switch.  The mesh sits over the
 process group the caller started (``torchrun``, spawned ranks with a
 store); only a 1 x 1 local mesh with no group starts one itself, a
 one-process group on an in-memory ``HashStore`` (no environment variables,
-no network).  On a group of several ranks on the card, each rank first
+no network).  Over a ``fake`` process group (``launch.dryrun``) the mesh
+is a ``cuda`` mesh on any machine and the port's device is not read.  On
+a group of several ranks on the card, each rank first
 takes its own card (``LOCAL_RANK``, else its rank modulo the cards) unless
 the caller pinned a device: the port's device is read from the current
 card, which ``init_device_mesh`` would otherwise leave at card 0.
@@ -44,6 +46,8 @@ def _device() -> torch.device:
 
 
 def _mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return _fake_mesh(shape, axes)
     dev = _device()
     backend = "nccl" if dev.type == "cuda" else "gloo"
     size = math.prod(shape)
@@ -62,6 +66,18 @@ def _mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
         raise ValueError(f"a {tuple(shape)} mesh needs {size} ranks, the "
                          f"process group has {dist.get_world_size()}")
     return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def _fake_mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
+    """The mesh over a ``fake`` process group (the dry-run's): a ``cuda``
+    mesh on any machine, since the dry-run models the card; no card is
+    touched and the port's device is not read."""
+    size = math.prod(shape)
+    if dist.get_world_size() != size:
+        raise ValueError(f"a {tuple(shape)} mesh needs {size} ranks, the "
+                         f"fake process group has {dist.get_world_size()}")
+    return init_device_mesh("cuda", tuple(shape),
                             mesh_dim_names=tuple(axes))
 
 

@@ -33,6 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..dist.sharding import contiguous_stride, pick
 
 Params = Dict[str, Any]
 
@@ -85,6 +88,8 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, ids, n):
         ctx.save_for_backward(ids)
+        if isinstance(data, DTensor):
+            return _dtensor_segment_sum(data, ids, n)
         out = data.new_zeros((n,) + tuple(data.shape[1:]))
         return out.index_add_(0, ids, data)
 
@@ -92,6 +97,27 @@ class _SegmentSum(torch.autograd.Function):
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         return grad.index_select(0, ids), None, None
+
+
+def _dtensor_segment_sum(data: DTensor, ids: DTensor, n: int) -> DTensor:
+    """``index_add`` of a DTensor's rows, which has no DTensor rule, as
+    GSPMD partitions a scatter-add: each rank adds its own rows into a
+    whole ``(n, ...)`` block, partial over every mesh dimension that
+    splits the rows (the next operation that needs the sums reduces
+    them), with ``ids`` placed as the rows are."""
+    mesh = data.device_mesh
+    id_pl, out_pl = [], []
+    for p in data.placements:
+        rows = isinstance(p, Shard) and p.dim == 0
+        id_pl.append(Shard(0) if rows else Replicate())
+        out_pl.append(Partial() if rows else p)
+    ids = ids.redistribute(mesh, id_pl).to_local()
+    local = data.to_local()
+    out = local.new_zeros((n,) + tuple(local.shape[1:])).index_add_(
+        0, ids, local)
+    shape = (n,) + tuple(data.shape[1:])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
@@ -105,8 +131,7 @@ def aggregate(messages: torch.Tensor, edge_dst: torch.Tensor, n_nodes: int,
               kind: str) -> torch.Tensor:
     s = segment_sum(messages, edge_dst, n_nodes)
     if kind == "mean":
-        deg = segment_sum(torch.ones(edge_dst.shape, dtype=messages.dtype,
-                                     device=messages.device),
+        deg = segment_sum(torch.ones_like(edge_dst, dtype=messages.dtype),
                           edge_dst, n_nodes)
         s = s / torch.clamp(deg, min=1.0)[:, None]
     return s
@@ -154,6 +179,20 @@ def param_shapes(cfg: GNNConfig) -> Dict[str, Any]:
             s[f"pn{i}"] = mlp_shapes([2 * d, d, d])            # node update
         return s
     raise ValueError(cfg.arch)
+
+
+def _shapes_as(fn, shapes):
+    if isinstance(shapes, dict):
+        return {k: _shapes_as(fn, v) for k, v in shapes.items()}
+    return fn(shapes)
+
+
+def abstract_params(cfg: GNNConfig) -> Params:
+    """The :func:`param_shapes` tree as ``meta`` tensors of ``cfg.dtype``
+    (shapes and dtypes, no storage)."""
+    return _shapes_as(lambda s: torch.empty(s, dtype=cfg.dtype,
+                                            device="meta"),
+                      param_shapes(cfg))
 
 
 def init_params(cfg: GNNConfig, generator: torch.Generator) -> Params:
@@ -301,7 +340,7 @@ def forward(params, batch, cfg: GNNConfig):
 
 def _nll(out, labels):
     logp = F.log_softmax(out.float(), -1)
-    return -logp.gather(-1, labels.long()[:, None])[:, 0]
+    return -pick(logp, labels)
 
 
 def loss_fn(params, batch, cfg: GNNConfig):

@@ -21,6 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..dist.sharding import reduced_lookup
 
 Params = Dict[str, torch.Tensor]
 
@@ -61,6 +64,13 @@ def param_shapes(cfg: DINConfig) -> Dict[str, Any]:
     return s
 
 
+def abstract_params(cfg: DINConfig) -> Params:
+    """The :func:`param_shapes` dict as ``meta`` tensors of ``cfg.dtype``
+    (shapes and dtypes, no storage)."""
+    return {k: torch.empty(s, dtype=cfg.dtype, device="meta")
+            for k, s in param_shapes(cfg).items()}
+
+
 def init_params(cfg: DINConfig, generator: torch.Generator) -> Params:
     """Random parameters on ``generator``'s device, drawn in sorted key
     order.  The reference's scheme: 1-D leaves at zero, matrices
@@ -89,7 +99,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 
     ids (..., L) -> (..., L, d) or reduced (..., d) for combine=sum/mean.
     """
-    e = F.embedding(ids, table)
+    e = reduced_lookup(F.embedding(ids, table))
     if mask is not None:
         e = e * mask[..., None].to(e.dtype)
     if combine == "sum":
@@ -176,14 +186,42 @@ def retrieval_scores(params, batch, cfg: DINConfig):
     p = params
     hist = _pair(p, batch["hist_items"], batch["hist_cates"])[0]   # (L, 2d)
     cand = _pair(p, batch["cand_items"], batch["cand_cates"])      # (C, 2d)
+    user = embedding_bag(p["user_table"], batch["user_feats"])[0].reshape(-1)
+    if isinstance(cand, DTensor):
+        return _scores_per_block(p, hist, cand, user, batch["hist_mask"][0])
+    return _scores(p, hist, cand, user, batch["hist_mask"][0])
+
+
+def _scores(p, hist, cand, user, hist_mask):
+    """The scores of candidates ``cand`` (C, 2d) for one user's ``hist``
+    (L, 2d), ``user`` features and ``hist_mask`` (L,) -> (C,)."""
     c = cand.shape[0]
-    mask = batch["hist_mask"][0][None, :].expand(c, hist.shape[0])
+    mask = hist_mask[None, :].expand(c, hist.shape[0])
     hist_b = hist[None].expand((c,) + tuple(hist.shape))
     interest = target_attention(p, hist_b, cand, mask)            # (C, 2d)
-    user = embedding_bag(p["user_table"], batch["user_feats"])[0].reshape(-1)
     user_b = user[None].expand(c, user.shape[0])
     x = torch.cat([user_b, interest, cand, interest * cand], dim=-1)
     return _mlp(p, "mlp", x, _n_layers(p, "mlp"))[:, 0]
+
+
+def _scores_per_block(p, hist, cand: DTensor, user, hist_mask) -> DTensor:
+    """:func:`_scores` on DTensors, run by each rank on its own block of
+    candidates, which are independent (GSPMD partitions it so, with no
+    communication): the MLPs, the user and the history are replicated.
+    DTensor's own products would flatten the (C, L, .) features, which it
+    refuses where the candidates split unevenly over the ranks."""
+    if any(not isinstance(pl, (Shard, Replicate))
+           or (isinstance(pl, Shard) and pl.dim != 0)
+           for pl in cand.placements):
+        raise ValueError(f"candidates placed as {cand.placements}: "
+                         f"expected a split of their rows or replicas")
+    whole = {k: v.full_tensor() for k, v in p.items()
+             if not k.endswith("_table")}
+    out = _scores(whole, hist.full_tensor(), cand.to_local(),
+                  user.full_tensor(), hist_mask.full_tensor())
+    return DTensor.from_local(out.contiguous(), cand.device_mesh,
+                              cand.placements, run_check=False,
+                              shape=cand.shape[:1], stride=(1,))
 
 
 def attention_grad_scales(params, batch, cfg: DINConfig) -> Dict[str, float]:

@@ -29,12 +29,18 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
+
+from ..dist.meta import host_int
+from ..dist.sharding import (partial_sums, pick, placements,
+                             reduced_lookup, summed)
 
 Params = Dict[str, object]
 
@@ -64,6 +70,11 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     # recompute each layer in the backward
     remat: bool = True
+    # the reference's switch from its layer scan to a Python loop, which
+    # its dry-run's cost calibration lowers (XLA's cost analysis counts a
+    # scan body once).  Kept so configs carry over: the layers here always
+    # run as a Python loop, so it changes nothing.
+    unroll: bool = False
     # chunked online-softmax attention (flash-style): never materializes the
     # (B, H, T, T) score matrix; kv_chunk is the K/V tile length.
     flash_attention: bool = False
@@ -72,6 +83,12 @@ class LMConfig:
     # sequence chunk, never materializing (B, T, V) f32.
     chunked_loss: bool = False
     loss_chunk: int = 512
+    # mesh axes that a DTensor activation's batch dimension is put on at
+    # every layer boundary (its other dimensions replicated): the
+    # reference's with_sharding_constraint, which keeps a layout with the
+    # batch replicated and d_model sharded out of the layers.  Nothing
+    # happens to a plain tensor.
+    shard_activations: Tuple[str, ...] = ()
 
     @property
     def head_dim(self) -> int:
@@ -156,6 +173,17 @@ def param_shapes(cfg: LMConfig) -> Dict[str, object]:
     }
 
 
+def abstract_params(cfg: LMConfig) -> Params:
+    """The :func:`param_shapes` tree as ``meta`` tensors of ``cfg.dtype``
+    (shapes and dtypes, no storage)."""
+    shapes = param_shapes(cfg)
+    meta = lambda s: torch.empty(s, dtype=cfg.dtype,  # noqa: E731
+                                 device="meta")
+    out: Params = {k: meta(s) for k, s in shapes.items() if k != "layers"}
+    out["layers"] = {k: meta(s) for k, s in shapes["layers"].items()}
+    return out
+
+
 def init_params(cfg: LMConfig, generator: torch.Generator) -> Params:
     """Random parameters, drawn from ``generator`` on its device.  The
     reference's scheme: norms at one, matrices ``N(0, 1) / sqrt(fan_in)``
@@ -222,6 +250,136 @@ def rope(x, positions, theta):
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      -1).to(x.dtype)
+
+
+def _split_heads(x, heads: int, hd: int):
+    """(B, T, heads * hd) -> (B, T, heads, hd).  A DTensor whose last
+    dimension a mesh dimension splits in a number of parts that does not
+    divide ``heads`` (yi-34b's 8 kv heads over 16 ranks: DTensor splits a
+    product's output even where the weight is replicated) is first
+    replicated over that mesh dimension, so that no head is cut."""
+    if isinstance(x, DTensor):
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 2
+              and heads % n else p
+              for p, n in zip(x.placements, x.device_mesh.shape)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(x.shape[0], x.shape[1], heads, hd)
+
+
+def _uneven_head_split(q, hkv: int):
+    """The mesh dimensions that split a DTensor ``q``'s heads (dim 2) in a
+    number of parts that does not divide ``hkv``: there its heads cannot
+    be viewed as ``(hkv, group)``."""
+    if not isinstance(q, DTensor):
+        return []
+    return [i for i, (p, n) in enumerate(zip(q.placements,
+                                             q.device_mesh.shape))
+            if isinstance(p, Shard) and p.dim == 2 and hkv % n]
+
+
+def _kv_for_heads(q, k, v):
+    """(k, v), each kv head repeated for every query head of its group
+    where a DTensor ``q``'s heads are split unevenly for grouping (yi-34b:
+    64 query heads over 16 ranks, 8 kv heads): the same attention, each
+    query head reading its group's kv head, with a group of one, and the
+    work still split by query heads.  Else ``(k, v)``."""
+    hkv = k.shape[2]
+    if not _uneven_head_split(q, hkv):
+        return k, v
+    b, tk, _, hd = k.shape
+    group = q.shape[2] // hkv
+
+    def rep(t):
+        return t[:, :, :, None].expand(b, tk, hkv, group, hd).reshape(
+            b, tk, hkv * group, hd)
+
+    return rep(k), rep(v)
+
+
+def _decode_attention(q, k, v, ck, cv, length: int, cfg: LMConfig):
+    """One decode step's attention: (out (B, t, Hq, hd), ck, cv), the new
+    keys and values written into the caches at ``length``."""
+    b, t, _, hd = q.shape
+    tk = ck.shape[1]
+    # the write clamps its start so the update fits, as XLA's
+    # dynamic_update_slice does; the masks use the unclamped length
+    start = min(max(length, 0), tk - t)
+    ck = torch.cat([ck[:, :start], k, ck[:, start + t:]], 1)
+    cv = torch.cat([cv[:, :start], v, cv[:, start + t:]], 1)
+    kpos = torch.arange(tk, device=q.device)
+    # mask out positions beyond current length + t, and the future
+    scores_mask = kpos < (length + t)
+    group = cfg.hq // cfg.hkv
+    qg = _heads_grouped(q, cfg.hkv).reshape(b, t, cfg.hkv, group, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck).float()
+    scores = scores / math.sqrt(hd)
+    qpos = torch.arange(t, device=q.device)[:, None] + length
+    causal = qpos >= kpos[None, :]
+    scores = torch.where((causal & scores_mask[None, :])[None, None, None],
+                         scores, -1e30)
+    probs = torch.softmax(scores, -1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(
+        b, t, cfg.hq, hd)
+    return out, ck, cv
+
+
+def _by_blocks(cache) -> bool:
+    """Whether a DTensor cache is split only by batch rows (dim 0) and kv
+    heads (dim 2), whole in the sequence."""
+    return all(not isinstance(p, Shard) or p.dim in (0, 2)
+               for p in cache.placements) and not any(
+        p.is_partial() for p in cache.placements)
+
+
+def _decode_per_block(q, k, v, ck, cv, length: int, cfg: LMConfig):
+    """:func:`_decode_attention` on DTensors, run by each rank on its own
+    block of batch rows and kv heads, the caches' own (a step reads and
+    writes only its block; GSPMD partitions it so): ``q``, ``k``, ``v``
+    placed as the caches are, each kv head's query heads with it."""
+    mesh, pl = ck.device_mesh, ck.placements
+    q, k, v = (x.redistribute(mesh, pl) for x in (q, k, v))
+    local = dataclasses.replace(
+        cfg, pad_heads_to=q.to_local().shape[2],
+        pad_kv_to=ck.to_local().shape[2], n_heads=1, n_kv=1)
+    out, lk, lv = _decode_attention(q.to_local(), k.to_local(),
+                                    v.to_local(), ck.to_local(),
+                                    cv.to_local(), length, local)
+    wrap = lambda t, like: DTensor.from_local(  # noqa: E731
+        t.contiguous(), mesh, pl, run_check=False, shape=like.shape,
+        stride=like.stride())
+    return wrap(out, q), wrap(lk, ck), wrap(lv, cv)
+
+
+def _per_block(fn, q, k, v):
+    """``fn(q, k, v)`` (causal attention, plain or flash) on DTensors, run
+    by each rank on its own block of batch rows and heads: attention is
+    independent across both, and GSPMD partitions it so, with no
+    communication.  DTensor's own einsum would merge the batch and heads
+    dimensions, split over different mesh dimensions, into one strided
+    layout, whose redistribution plans DTensor searches for at a cost that
+    grows past any budget on a three-axis mesh.  Every mesh dimension is
+    made to split the batch (dim 0) or the heads (dim 2) or to replicate,
+    and ``k``, ``v`` are placed as ``q``."""
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local()).contiguous()
+    b, t, h, hd = q.shape
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=q.shape,
+                              stride=(t * h * hd, h * hd, hd, 1))
+
+
+def _heads_grouped(q, hkv: int):
+    """``q`` with its heads replicated over the mesh dimensions that split
+    them unevenly for grouping (decode: a one-token ``q``, far smaller
+    than the cache it reads), so that they view as ``(hkv, group)``."""
+    dims = _uneven_head_split(q, hkv)
+    if not dims:
+        return q
+    return q.redistribute(q.device_mesh, [
+        Replicate() if i in dims else p for i, p in enumerate(q.placements)])
 
 
 def _flash_chunk(acc, m, denom, qg, kb, vb, kpos, qpos):
@@ -302,40 +460,28 @@ def attention_block(x, layer, cfg: LMConfig, positions, cache=None):
     v = x @ layer["wv"]
     if cfg.qkv_bias:
         q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.reshape(b, t, cfg.hq, hd)
-    k = k.reshape(b, t, cfg.hkv, hd)
-    v = v.reshape(b, t, cfg.hkv, hd)
+    q = _split_heads(q, cfg.hq, hd)
+    k = _split_heads(k, cfg.hkv, hd)
+    v = _split_heads(v, cfg.hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         if cfg.flash_attention and t % cfg.kv_chunk == 0 and t > cfg.kv_chunk:
-            out = _flash_attention(q, k, v, kv_chunk=cfg.kv_chunk)
+            fn = partial(_flash_attention, kv_chunk=cfg.kv_chunk)
         else:
-            out = _attention(q, k, v, causal=True)
+            fn = partial(_attention, causal=True)
+        if isinstance(q, DTensor):
+            out = _per_block(fn, q, *_kv_for_heads(q, k, v))
+        else:
+            out = fn(q, k, v)
         new_cache = (k, v)
     else:
         ck, cv, length = cache                    # (B, Tmax, Hkv, hd) x2, int
-        tk = ck.shape[1]
-        # the write clamps its start so the update fits, as XLA's
-        # dynamic_update_slice does; the masks use the unclamped length
-        start = min(max(length, 0), tk - t)
-        ck = torch.cat([ck[:, :start], k, ck[:, start + t:]], 1)
-        cv = torch.cat([cv[:, :start], v, cv[:, start + t:]], 1)
-        kpos = torch.arange(tk, device=x.device)
-        # mask out positions beyond current length + t, and the future
-        scores_mask = kpos < (length + t)
-        group = cfg.hq // cfg.hkv
-        qg = q.reshape(b, t, cfg.hkv, group, hd)
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck).float()
-        scores = scores / math.sqrt(hd)
-        qpos = torch.arange(t, device=x.device)[:, None] + length
-        causal = qpos >= kpos[None, :]
-        scores = torch.where((causal & scores_mask[None, :])[None, None, None],
-                             scores, -1e30)
-        probs = torch.softmax(scores, -1).to(x.dtype)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(
-            b, t, cfg.hq, hd)
+        if isinstance(ck, DTensor) and _by_blocks(ck):
+            out, ck, cv = _decode_per_block(q, k, v, ck, cv, length, cfg)
+        else:
+            out, ck, cv = _decode_attention(q, k, v, ck, cv, length, cfg)
         new_cache = (ck, cv)
     return out.reshape(b, t, cfg.hq * hd) @ layer["wo"], new_cache
 
@@ -375,11 +521,23 @@ def moe_ffn(x, layer, cfg: LMConfig):
     them.  The reference's ``vmap`` over rows becomes flat row offsets
     into one ``index_add``.
     """
+    if isinstance(x, DTensor):
+        y = _routed_per_block(x, layer, cfg)
+    else:
+        y = _routed(x, layer["router"], layer["we1"], layer["we3"],
+                    layer["we2"], cfg)
+    if cfg.n_shared:
+        y = y + (F.silu(x @ layer["ws1"]) * (x @ layer["ws3"])) @ layer["ws2"]
+    return y
+
+
+def _routed(x, router, we1, we3, we2, cfg: LMConfig):
+    """The routed experts' output of :func:`moe_ffn` on plain tensors."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = int(math.ceil(t * k / e * cfg.capacity_factor))
 
-    logits = (x @ layer["router"]).float()                   # (B, T, E)
+    logits = (x @ router).float()                            # (B, T, E)
     gate, sel = torch.topk(logits, k, dim=-1)                # (B, T, k)
     gate = torch.softmax(gate, -1).to(x.dtype)
     stok, slot, keep, order = moe_dispatch(sel, e, cap)
@@ -392,27 +550,79 @@ def moe_ffn(x, layer, cfg: LMConfig):
     buf = x.new_zeros(b * n_slot, d).index_add(
         0, (rows * n_slot + slot).reshape(-1), xs.reshape(-1, d))
     h_in = buf.reshape(b, n_slot, d)[:, :e * cap].reshape(b, e, cap, d)
-    h = torch.einsum("becd,edf->becf", h_in, layer["we1"])
-    h3 = torch.einsum("becd,edf->becf", h_in, layer["we3"])
+    h = torch.einsum("becd,edf->becf", h_in, we1)
+    h3 = torch.einsum("becd,edf->becf", h_in, we3)
     h = F.silu(h) * h3
-    out_e = torch.einsum("becf,efd->becd", h, layer["we2"]).reshape(
-        b, e * cap, d)
+    out_e = torch.einsum("becf,efd->becd", h, we2).reshape(b, e * cap, d)
     back = out_e[rows, torch.clamp(slot, 0, e * cap - 1)] * sg[..., None]
     back = torch.where(keep[..., None], back, torch.zeros_like(back))
-    y = x.new_zeros(b * t, d).index_add(
+    return x.new_zeros(b * t, d).index_add(
         0, (rows * t + stok).reshape(-1), back.reshape(-1, d)).reshape(b, t, d)
-    if cfg.n_shared:
-        y = y + (F.silu(x @ layer["ws1"]) * (x @ layer["ws3"])) @ layer["ws2"]
-    return y
+
+
+def _routed_per_block(x, layer, cfg: LMConfig):
+    """:func:`_routed` on DTensors, as GSPMD partitions the reference's
+    ``vmap`` over dispatch groups: each rank routes its own batch rows
+    (the dispatch's sort and ``searchsorted`` have no DTensor rule, and a
+    row's dispatch needs nothing of another row) through its ``model``
+    slice of every expert's ``d_ff_expert``; the router and the experts'
+    other dimensions are gathered, and the slices' partial sums stay
+    partial over ``model`` until an operation needs them summed.  The
+    gradients of what a rank reads are its share of a sum: over the batch
+    rows for the weights, over the slices for the rows and the router."""
+    mesh = x.device_mesh
+    model = [i for i, n in enumerate(mesh.mesh_dim_names) if n == "model"]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 and i not in model
+            else Replicate() for i, p in enumerate(x.placements)]
+    summed = [Partial() if i in model else p for i, p in enumerate(rows)]
+
+    def local(name, ff_dim=None):
+        pl = [Shard(ff_dim) if ff_dim is not None and i in model
+              else Replicate() for i in range(mesh.ndim)]
+        grad = [p if isinstance(p, Shard) else Partial() for p in pl]
+        return layer[name].redistribute(mesh, pl).to_local(
+            grad_placements=grad)
+
+    y = _routed(x.redistribute(mesh, rows).to_local(grad_placements=summed),
+                local("router"), local("we1", 2), local("we3", 2),
+                local("we2", 1), cfg)
+    return partial_sums(y, mesh, summed, x.shape)
+
+
+def _constrain(x, cfg: LMConfig):
+    """``x`` with its batch dimension on ``cfg.shard_activations`` and
+    its other dimensions replicated, where ``x`` is a DTensor and the
+    option is set; else ``x``."""
+    if not cfg.shard_activations or not isinstance(x, DTensor):
+        return x
+    spec = (tuple(cfg.shard_activations),) + (None,) * (x.dim() - 1)
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 def _layer_fn(x, layer, cfg: LMConfig, positions, cache=None):
+    x = _constrain(x, cfg)
     h, new_cache = attention_block(rmsnorm(x, layer["ln1"], cfg.norm_eps),
                                    layer, cfg, positions, cache)
-    x = x + h
+    x = x + _onto(h, x)
     xn = rmsnorm(x, layer["ln2"], cfg.norm_eps)
-    x = x + (moe_ffn(xn, layer, cfg) if cfg.is_moe else dense_ffn(xn, layer))
-    return x, new_cache
+    f = moe_ffn(xn, layer, cfg) if cfg.is_moe else dense_ffn(xn, layer)
+    x = x + _onto(f, x)
+    return _constrain(x, cfg), new_cache
+
+
+def _onto(h, x):
+    """A block's output ``h`` placed as the residual stream ``x`` where
+    both are DTensors (a row-parallel product's partial sums all-reduced,
+    as Megatron's tensor parallelism does: ``dist.sharding.summed``); else
+    ``h``.  Left to itself DTensor reduce-scatters them onto the sequence
+    dimension, and the next product, flattening batch and sequence split
+    over different mesh axes, makes a strided layout whose
+    redistributions DTensor plans by a search that does not finish on a
+    three-axis mesh."""
+    if isinstance(h, DTensor) and isinstance(x, DTensor) \
+            and h.placements != x.placements:
+        return summed(h, x.placements)
+    return h
 
 
 def _train_layer(x, layer, cfg: LMConfig, positions):
@@ -420,12 +630,18 @@ def _train_layer(x, layer, cfg: LMConfig, positions):
 
 
 # ------------------------------------------------------------------ forward
+def _embed(tokens, embed, cfg: LMConfig):
+    """The tokens' embedding rows in ``cfg.dtype`` (from a DTensor table
+    split over the vocabulary, reduced once: ``dist.reduced_lookup``)."""
+    return reduced_lookup(F.embedding(tokens, embed)).to(cfg.dtype)
+
+
 def forward_hidden(params, tokens, cfg: LMConfig):
     """Transformer trunk without the LM head: (B, T) -> (B, T, d).
 
     With ``remat`` each layer is recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant)."""
-    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    x = _embed(tokens, params["embed"], cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device
                              ).expand(tokens.shape)
     for layer in split_layers(params["layers"]):
@@ -445,9 +661,26 @@ def forward(params, tokens, cfg: LMConfig):
 
 def _ce_chunk(h, lm_head, labels, mask):
     logits = (h @ lm_head).float()
-    logp = torch.log_softmax(logits, -1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        nll = _split_vocab_nll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits, -1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return (nll * mask).sum()
+
+
+def _split_vocab_nll(logits: DTensor, labels) -> DTensor:
+    """``-log_softmax(logits)[label]`` of DTensor logits whose vocabulary
+    stays split as the vocab-sharded head leaves it: the log-sum-exp's max
+    and sum, and the label's logit (``dist.sharding.pick``), are
+    reductions over the split dimension (DTensor sums the shards' partial
+    results), as GSPMD partitions them; DTensor's own ``log_softmax``
+    would gather the whole vocabulary on every rank.  The max is a
+    constant of the function (it shifts every logit alike), so it takes
+    no gradient."""
+    z = logits - logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(z).sum(-1))
+    return lse - pick(z, labels)
 
 
 def _chunked_ce(hidden, lm_head, labels, mask, chunk: int):
@@ -469,8 +702,7 @@ def loss_fn(params, batch, cfg: LMConfig):
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     denom = torch.clamp(mask.sum(), min=1.0)
     if cfg.chunked_loss and labels.shape[1] % cfg.loss_chunk == 0 \
             and labels.shape[1] > cfg.loss_chunk:
@@ -493,8 +725,10 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
 def decode_step(params, cache, tokens, cfg: LMConfig):
     """One decode step: tokens (B, t) + cache -> (logits (B, t, V), cache)."""
     b, t = tokens.shape
-    length = int(cache["length"])
-    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    # traced on meta tensors, any length: the step's work does not
+    # depend on it
+    length = host_int(cache["length"], 0)
+    x = _embed(tokens, params["embed"], cfg)
     positions = (torch.arange(t, device=tokens.device)[None]
                  + length).expand(b, t)
     nks, nvs = [], []

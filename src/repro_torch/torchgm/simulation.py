@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..dist.meta import host_int
 from ..kernels import ops
 from .device_graph import DeviceGraph
 from .encoding import QueryTensor
@@ -51,7 +52,8 @@ def _edges(qt: QueryTensor, device) -> Tuple[int, tuple]:
     """Number of edge slots any batch member uses, and the (Bq, max_e)
     edge tensors on ``device``.  Slots past every member's edge count hold
     padding (kind PAD), which the passes would skip anyway."""
-    n_e = int(qt.n_edges.max()) if qt.n_edges.numel() else 0
+    # traced on meta tensors: every slot, as the reference's static loop
+    n_e = host_int(qt.n_edges.max(), qt.max_e) if qt.n_edges.numel() else 0
     cols = tuple(t.reshape(-1, qt.max_e).to(device).long()
                  for t in (qt.edge_src, qt.edge_dst, qt.edge_kind))
     return n_e, cols

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import tree as tr
 
@@ -78,12 +79,40 @@ def _slices(t: torch.Tensor):
     return t.split(max(1, SLICE_ELEMS // row), 0)
 
 
+def _reduced(g: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient with its partial sums added up (replicated over
+    those mesh dimensions), as a single device's gradient is, before the
+    update scales it: scaling each rank's partial term first would round
+    them apart where they cancel."""
+    if isinstance(g, DTensor) and any(p.is_partial() for p in g.placements):
+        return g.redistribute(g.device_mesh, [
+            Replicate() if p.is_partial() else p for p in g.placements])
+    return g
+
+
+def _split_copies(t: torch.Tensor) -> bool:
+    """Whether ``t`` splits along its first dimension into copies, not
+    views: a DTensor whose placements shard that dimension."""
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 0 for p in t.placements)
+
+
+def _sliced(*ts):
+    """The matching slices of same-shaped leaves (:func:`_slices`), or the
+    leaves whole where one of them would split into copies, whose update
+    would be lost."""
+    if any(_split_copies(t) for t in ts):
+        return (ts,)
+    return zip(*(_slices(t) for t in ts))
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig,
                   decay_mask: Optional[Any] = None):
     """Returns (params, new_state, metrics); ``params`` and the state's
     ``m`` and ``v`` are updated in place."""
     step = state["step"] + 1
+    grads = tr.map_tree(_reduced, grads)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0
@@ -109,7 +138,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig,
     for p, g, m, v, d in zip(tr.leaves(params), tr.leaves(grads),
                              tr.leaves(state["m"]), tr.leaves(state["v"]),
                              tr.leaves(decay_mask)):
-        for sl in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
+        for sl in _sliced(p, g, m, v):
             upd(*sl, d)
     return params, {"step": step, "m": state["m"], "v": state["v"]}, \
         {"lr": lr, "grad_norm": gnorm}

@@ -1034,3 +1034,94 @@ def test_closure_step_kernel_power_law_32k(cuda):
     got = closure_step(r)
     assert launch_counts() == {"closure_step": 1}
     assert torch.equal(got, ref.closure_step_ref(r))
+
+
+# ------------------------------------------------- the kernels as operators
+@pytest.mark.cuda
+def test_bitmm_operator_fake_meta_and_formula_on_cuda(cuda):
+    """``bitmm`` is the operator ``repro_torch::bitmm``: fake ``cuda``
+    tensors and ``meta`` tensors get the output's shape and dtype from its
+    fake and launch nothing; ``FlopCounterMode`` over a real call counts
+    the kernel's ``2 M 32 W B``; the real call launches the kernel once
+    and equals the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rng = np.random.default_rng(0)
+    a = _lanes(rng, 300, 5).to(cuda)
+    x = torch.from_numpy(rng.random((150, 40)) < 0.3).to(cuda)
+    reset_launch_counts()
+    with FakeTensorMode() as mode:
+        fa, fx = mode.from_tensor(a), mode.from_tensor(x)
+        for threshold, dtype in ((True, torch.bool),
+                                 (False, torch.float32)):
+            y = bitmm(fa, fx, threshold=threshold)
+            assert (y.shape, y.dtype, y.device.type) \
+                == ((300, 40), dtype, "cuda")
+    y = bitmm(a.to("meta"), x.to("meta"), threshold=False)
+    assert (y.shape, y.dtype) == ((300, 40), torch.float32)
+    assert launch_counts() == {}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        y = bitmm(a, x, threshold=False)
+    assert counter.get_total_flops() == 2 * 300 * 32 * 5 * 40
+    assert launch_counts() == {"bitmm": 1}
+    assert torch.equal(y.cpu(), ref.bitmm_ref(a.cpu(), x.cpu(),
+                                              threshold=False))
+
+
+@pytest.mark.cuda
+def test_closure_step_operator_fake_meta_and_formula_on_cuda(cuda):
+    """``closure_step`` is the operator ``repro_torch::closure_step``
+    (writing ``out``): fake and ``meta`` calls launch nothing;
+    ``FlopCounterMode`` counts the dense bound ``3 N W + N N W``; the real
+    call launches once and equals the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rng = np.random.default_rng(1)
+    r = _lanes(rng, 256, 8).to(cuda)
+    reset_launch_counts()
+    with FakeTensorMode() as mode:
+        out = closure_step(mode.from_tensor(r))
+        assert (out.shape, out.dtype, out.device.type) \
+            == ((256, 8), torch.int32, "cuda")
+    assert closure_step(r.to("meta")).shape == (256, 8)
+    assert launch_counts() == {}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = closure_step(r)
+    assert counter.get_total_flops() == 3 * 256 * 8 + 256 * 256 * 8
+    assert launch_counts() == {"closure_step": 1}
+    assert torch.equal(out.cpu(), ref.closure_step_ref(r.cpu()))
+
+
+@pytest.mark.cuda
+def test_dryrun_trace_on_the_cards_machine(cuda):
+    """The dry-run on the card's machine: a fake group's mesh is a
+    ``cuda`` mesh, the units trace on ``meta`` tensors (the serve unit and
+    a small LM train unit on (2, 2)) and no kernel is launched; the card's
+    allocator does not move."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LMArch
+    from repro_torch.launch.dryrun import fake_group, trace
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    with fake_group(4):
+        mesh = make_local_mesh(2, 2)
+        assert mesh.device_type == "cuda"
+        t = trace(get_config("rig_gm").build_dryrun(
+            dict(kind="serve", n_pad=8192, batch=2, passes=4), mesh))
+        assert t["flops"] == 18 * 2 * 4096 * 32 * 128 * 16
+        lm = LMArch(dataclasses.replace(
+            get_config("qwen2-7b").smoke_config(), n_layers=2))
+        t = trace(lm.build_dryrun(dict(kind="train", seq_len=32,
+                                       global_batch=4), mesh))
+        assert t["flops"] > 0 and t["collectives"]["all-reduce"]["count"]
+    assert launch_counts() == {}
+    assert torch.cuda.memory_allocated() == before

@@ -62,6 +62,14 @@ assert gnn["finite"], gnn
 import repro_torch.models.gnn_dist, repro_torch.configs.pattern
 pattern = get_config("rig_gm").smoke(seed=0, device="cpu")
 assert pattern["finite"], pattern
+import repro_torch.dist, repro_torch.dist.sharding, repro_torch.dist.meta
+import repro_torch.launch.dryrun, repro_torch.launch.hillclimb
+from repro_torch.launch.dryrun import fake_group, trace
+from repro_torch.launch.mesh import make_local_mesh
+with fake_group(4):
+    unit = get_config("rig_gm").build_dryrun(
+        dict(kind="closure", n_pad=1024), make_local_mesh(2, 2))
+    assert trace(unit)["flops"] > 0
 from repro_torch.data.graphs import random_labeled_graph
 from repro_torch.data.queries import random_query_from_graph
 g = random_labeled_graph(50, avg_degree=2.5, n_labels=3, seed=1)

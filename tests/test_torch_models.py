@@ -302,14 +302,20 @@ def test_config_counts_match_reference(arch_id):
         == 6.0 * port.cfg.n_active_params() * 2048
 
 
-def test_registry_names_the_missing_slices():
-    """Every arch of the reference resolves; what is still to port (the
-    dry-run units) raises and names its part of the port."""
+def test_registry_resolves_every_arch_and_its_units():
+    """Every arch of the reference resolves, and builds its dry-run unit
+    (``closure_256k``'s on a 1 x 1 mesh over a fake group)."""
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+
     assert all_arch_ids()[:5] == list(LM_ARCHS)
     assert all_arch_ids() == ref_arch_ids()
     assert get_config("rig_gm").family == ref_get_config("rig_gm").family
-    with pytest.raises(NotImplementedError, match="part 9.3"):
-        get_config("rig_gm").build_dryrun("closure_256k", None)
+    with fake_group(1):
+        unit = get_config("rig_gm").build_dryrun("closure_256k",
+                                                 make_local_mesh(1, 1))
+    assert unit.name == "rig_gm:closure_256k"
+    assert tuple(unit.args[0].shape) == (1 << 18, 1 << 13)
     with pytest.raises(KeyError, match="unknown"):
         get_config("nope")
 

@@ -1,8 +1,8 @@
 """The port's ``rig_gm`` arch (``repro_torch.configs.pattern``) and the
 registry against the JAX package's, on the CPU: shapes, ``model_flops``
 for every shape, the smoke's dict for four seeds (``TorchGM`` on the
-kernels' plain versions against the reference's ``JaxGM``), and what is
-still to port raising."""
+kernels' plain versions against the reference's ``JaxGM``), and each
+shape's dry-run unit against the reference's."""
 
 import pytest
 
@@ -61,7 +61,38 @@ def test_smoke_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("shape", list(PatternArch.shapes))
-def test_build_dryrun_names_its_part(shape):
-    with pytest.raises(NotImplementedError,
-                       match=f"rig_gm:{shape}.*part 9.3"):
-        get_config("rig_gm").build_dryrun(shape, None)
+def test_build_dryrun_unit_matches_reference(shape):
+    """Each shape's unit on the (16, 16) production mesh (a fake group of
+    256 ranks): its arguments' global shapes and dtypes (the packed uint32
+    words as int32 lanes) and placements are the reference's
+    ``ShapeDtypeStruct``s and specs; it runs on each rank's own tile."""
+    from jax.sharding import AbstractMesh
+
+    from repro_torch.dist.sharding import placements
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_production_mesh
+
+    ref = ref_get_config("rig_gm").build_dryrun(
+        shape, AbstractMesh((16, 16), ("data", "model")))
+    with fake_group(256):
+        mesh = make_production_mesh()
+        unit = get_config("rig_gm").build_dryrun(shape, mesh)
+        assert unit.local and unit.name == ref.name
+        args, specs = [], []
+        for a, p in zip(unit.args, unit.placements):
+            leaves = (list(vars(a).values()), list(vars(p).values())) \
+                if hasattr(a, "labels") else ([a], [p])
+            args += leaves[0]
+            specs += leaves[1]
+        ref_args = [x for a in ref.args for x in
+                    (a.tree_flatten()[0] if hasattr(a, "tree_flatten")
+                     else [a])]
+        ref_specs = [x.spec for a in ref.in_shardings for x in
+                     (a.tree_flatten()[0] if hasattr(a, "tree_flatten")
+                      else [a])]
+        assert len(args) == len(ref_args) == len(specs) == len(ref_specs)
+        for got, want, pl, spec in zip(args, ref_args, specs, ref_specs):
+            assert tuple(got.shape) == tuple(want.shape)
+            assert str(got.dtype) == {"uint32": "torch.int32"}.get(
+                str(want.dtype), f"torch.{want.dtype}")
+            assert pl == placements(tuple(spec), mesh)
