@@ -17,6 +17,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.trace import profiled
+
 CHILD = 0
 DESC = 1
 
@@ -161,20 +163,22 @@ class PatternQuery:
         other's removal (matters only for cyclic patterns, where the
         reduction is not unique — we return one valid reduction).
         """
-        edges = list(self.edges)
-        changed = True
-        while changed:
-            changed = False
-            for e in sorted((e for e in edges if e.kind == DESC),
-                            key=lambda e: (e.src, e.dst)):
-                q = PatternQuery(labels=list(self.labels),
-                                 edges=[x for x in edges if x != e])
-                if q.reachable_matrix()[e.src, e.dst]:
-                    edges = q.edges
-                    changed = True
-                    break
-        return PatternQuery(labels=list(self.labels), edges=edges,
-                            name=(self.name + "+tr") if self.name else "tr")
+        with profiled("query.reduce"):
+            edges = list(self.edges)
+            changed = True
+            while changed:
+                changed = False
+                for e in sorted((e for e in edges if e.kind == DESC),
+                                key=lambda e: (e.src, e.dst)):
+                    q = PatternQuery(labels=list(self.labels),
+                                     edges=[x for x in edges if x != e])
+                    if q.reachable_matrix()[e.src, e.dst]:
+                        edges = q.edges
+                        changed = True
+                        break
+            name = (self.name + "+tr") if self.name else "tr"
+            return PatternQuery(labels=list(self.labels), edges=edges,
+                                name=name)
 
     # ----------------------------------------------------- dag decomposition
     def dag_decomposition(self):

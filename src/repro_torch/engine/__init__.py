@@ -7,7 +7,7 @@
 # ``execute(..., profile=True)``, a per-engine metrics registry, and
 # ``explain()`` plan trees — see ``repro_torch.obs``).
 from ..obs import (MetricsRegistry, Span, Tracer, prometheus_text,
-                   render_trace, trace_to_json)
+                   render_trace)
 from .cache import GraphContext, LRUCache
 from .canonical import canonical_form, canonical_key
 from .engine import (Engine, EngineOptions, EngineResult, EngineStats,
@@ -26,7 +26,7 @@ __all__ = [
     "Plan", "Planner", "DeviceCaps",
     "GraphStats", "RigStats", "GraphContext", "LRUCache",
     "Span", "Tracer", "MetricsRegistry",
-    "render_trace", "trace_to_json", "prometheus_text",
+    "render_trace", "prometheus_text",
     "Budget", "CircuitBreaker",
     "QueryError", "DeadlineExceeded", "ResourceExhausted", "TransientError",
     "DeviceFailure", "BreakerOpen", "InjectedFault", "AdmissionError",

@@ -134,6 +134,13 @@ class EngineStats:
     ``sim_passes`` is the measured pass count on the host backend, the
     fixed pass budget on the truncated device path, and 0 (not tracked) on
     the exact-sim device path.
+
+    ``exec_s`` is the query's own execution where it ran alone; for a
+    member of a fused batch (``execute_many``'s device batch or frontier
+    lane) it is an equal share of the batch's dispatch (plus, on the
+    device batch, any host fallback the member caused), not the time the
+    member itself took.  ``total_s`` of a batch member is the sum of its
+    phases, so it carries that share too.
     """
 
     backend: str = HOST

@@ -5,13 +5,12 @@
 # QPS / error-rate / p50-p95-p99 (window), a bounded ring-buffer flight
 # recorder of structured per-request events with tail-based exemplar
 # sampling and incident auto-dumps (events + flight), and exporters —
-# JSON trace dumps, Prometheus-style text, and a compact terminal trace
-# tree (export).  The tracer has a zero-allocation no-op path
-# (NULL_TRACER) so instrumented hot paths cost nothing when profiling is
-# off, and the always-on telemetry (events + windows) is bounded-memory
-# by construction.
+# Prometheus-style text and a compact terminal trace tree (export).  The
+# tracer has a zero-allocation no-op path (NULL_TRACER) so instrumented
+# hot paths cost nothing when profiling is off, and the always-on
+# telemetry (events + windows) is bounded-memory by construction.
 from .events import BreakerEvent, QueryEvent, ServerEvent
-from .export import prometheus_text, render_trace, trace_to_json
+from .export import prometheus_text, render_trace
 from .flight import FlightRecorder
 from .ledger import (LEDGER, Ledger, ResidentLedger, TransferLedger,
                      get_ledger)
@@ -27,6 +26,6 @@ __all__ = [
     "get_registry",
     "QuantileSketch", "WindowedAggregator",
     "QueryEvent", "BreakerEvent", "ServerEvent", "FlightRecorder",
-    "trace_to_json", "render_trace", "prometheus_text",
+    "render_trace", "prometheus_text",
     "TransferLedger", "ResidentLedger", "Ledger", "LEDGER", "get_ledger",
 ]

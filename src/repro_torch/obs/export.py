@@ -1,7 +1,5 @@
 """Exporters for traces and metrics.
 
-* :func:`trace_to_json` — one span tree as a JSON document (the CI
-  profile-smoke artifact format).
 * :func:`render_trace` — a compact per-query tree for terminal display
   (``Engine.execute(..., profile=True)`` then ``render_trace(res.trace)``).
 * :func:`prometheus_text` — the classic ``# TYPE`` + series-per-line text
@@ -11,21 +9,12 @@
 
 from __future__ import annotations
 
-import json
 from typing import Any, List, Optional
 
 from .metrics import Histogram, MetricsRegistry, metric_key
 from .trace import Span
 
-__all__ = ["trace_to_json", "render_trace", "prometheus_text"]
-
-TRACE_SCHEMA_VERSION = 1
-
-
-def trace_to_json(span: Span, indent: Optional[int] = 2) -> str:
-    payload = {"schema_version": TRACE_SCHEMA_VERSION,
-               "trace": span.to_dict() if span is not None else None}
-    return json.dumps(payload, indent=indent, sort_keys=True)
+__all__ = ["render_trace", "prometheus_text"]
 
 
 def _fmt_val(v: Any) -> str:

@@ -10,8 +10,8 @@ object or go through the registry.
 
 ``snapshot()`` takes an *atomic* point-in-time copy under the registry
 lock — the fix for torn reads when concurrent streams finalize while other
-queries mutate shared counters (see ``EngineStats``).  Exporters
-(Prometheus text, JSON) live in :mod:`repro_torch.obs.export`.
+queries mutate shared counters (see ``EngineStats``).  The exporter
+(Prometheus text) lives in :mod:`repro_torch.obs.export`.
 """
 
 from __future__ import annotations

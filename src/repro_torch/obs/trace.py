@@ -20,6 +20,13 @@ Two tracer flavours share one calling convention:
   dicts, no timestamps are ever allocated, so un-profiled queries pay a
   few no-op method calls and nothing else.  ``Tracer.enabled`` lets hot
   loops skip even attribute construction (``if trace.enabled: ...``).
+
+Beside the per-query trees, :func:`profiled` puts the filter step's host
+phases on the timeline of a ``torch.profiler`` run, whose clock is the
+one its device activity is recorded on: each range is named
+``repro_torch.<name>``, so that a reader of the profile can give every
+kernel the phase that launched it and split the device's idle time by
+what the host was doing.  With no profiler recording it costs one check.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
-__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER"]
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER", "profiled"]
 
 
 class Span:
@@ -249,3 +258,14 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+def profiled(name: str):
+    """A context manager that, while a ``torch.profiler`` run is recording,
+    opens the ``record_function`` range ``repro_torch.<name>``; otherwise
+    the shared :data:`_NULL_SPAN`, with nothing allocated, no tensor
+    operation and no device synchronisation.  The ranges carry no step or
+    request id: they nest by time on the thread that opened them."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _autograd_profiler.record_function("repro_torch." + name)

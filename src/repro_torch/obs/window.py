@@ -13,7 +13,13 @@ same relative-error guarantee as the per-window ones.
 Unlike the cumulative :class:`~repro_torch.obs.metrics.Histogram` series
 (which answer "since process start"), windows answer the serving
 questions: what is p99 *right now*, did the error rate spike *this
-window*.  The clock is injectable (same pattern as
+window*.  The engine feeds each request's phases from ``EngineStats``, so
+a quantile here is the engine's side of a request: ``total`` is its
+``total_s``, without the time the request waited in a server's queue, and
+for the members of a fused batch the sum of their own phases, with
+``exec`` each member's equal share of the batch's dispatch.  A user's
+latency is measured by the caller, from submission to answer.  The clock
+is injectable (same pattern as
 :class:`repro_torch.robust.breaker.CircuitBreaker`), so rotation boundaries are
 unit-testable without sleeping.
 """

@@ -38,6 +38,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops, packed
+from ..obs.metrics import get_registry
+from ..obs.trace import profiled
 from .device_graph import DeviceGraph
 from .encoding import QueryTensor
 from .simulation import _columns, _edges, apply_edge_masks, edge_sums
@@ -158,6 +160,26 @@ def sharded_double_simulation(mats: torch.Tensor, labels: torch.Tensor,
 
 
 # -------------------------------------------------------------- serve step
+def _count_edge_slots(qts: QueryTensor, n_passes: int) -> None:
+    """Adds to the process-wide counters ``serve_edge_slots``, the (batch
+    member, edge slot) pairs that one step's edge masks and edge sums
+    process (every member runs to the batch's largest edge count in each
+    pass, and the edge sums run every slot), and ``serve_edge_slots_real``,
+    those among them whose slot holds one of the member's edges.  Counted
+    from ``qts.n_edges`` where it is a CPU tensor with values; elsewhere (a
+    card's, a ``meta`` trace's) nothing is read or counted."""
+    n_edges = qts.n_edges
+    if type(n_edges) is not torch.Tensor or n_edges.device.type != "cpu":
+        return
+    per_member = n_edges.tolist()
+    n_e = max(per_member, default=0)
+    reg = get_registry()
+    reg.counter("serve_edge_slots").inc(
+        len(per_member) * (n_e * n_passes + qts.max_e))
+    reg.counter("serve_edge_slots_real").inc(
+        sum(per_member) * (n_passes + 1))
+
+
 class ServeStepOut(NamedTuple):
     fb_sizes: torch.Tensor     # (B, max_q) int32   |cos(q)|
     edge_counts: torch.Tensor  # (B, max_e) float32 RIG edge cardinalities
@@ -172,45 +194,50 @@ def gm_serve_step(mats: torch.Tensor, labels: torch.Tensor,
     node, the pod-local enumeration handoff).  Every output is replicated
     on every rank.  Raises ``ValueError`` where the model shards hold
     fewer than ``top_k`` nodes in all."""
-    _, col = _axes(mesh)
-    n_model = _size(mesh, col)
-    np_l = labels.shape[0]
-    if n_model * min(top_k, np_l) < top_k:
-        raise ValueError(f"top_k={top_k} is more than the {n_model} model "
-                         f"shards' {n_model * min(top_k, np_l)} candidates")
-    fb = sharded_double_simulation(mats, labels, qts, mesh,
-                                   n_passes=n_passes, pack_y=pack_y)
-    b, max_q, _ = fb.shape
-    col_group = mesh.get_group(col)
-    sizes = fb.sum(dim=2, dtype=torch.int32)             # (B, max_q)
-    dist.all_reduce(sizes, group=col_group)
+    with profiled("serve.step"):
+        _, col = _axes(mesh)
+        n_model = _size(mesh, col)
+        np_l = labels.shape[0]
+        if n_model * min(top_k, np_l) < top_k:
+            raise ValueError(f"top_k={top_k} is more than the {n_model} "
+                             f"model shards' {n_model * min(top_k, np_l)} "
+                             f"candidates")
+        _count_edge_slots(qts, n_passes)
+        fb = sharded_double_simulation(mats, labels, qts, mesh,
+                                       n_passes=n_passes, pack_y=pack_y)
+        b, max_q, _ = fb.shape
+        col_group = mesh.get_group(col)
+        sizes = fb.sum(dim=2, dtype=torch.int32)         # (B, max_q)
+        dist.all_reduce(sizes, group=col_group)
 
-    # RIG edge counts: one more sum-semantics pass over the forward
-    # matrices; each rank sums its node range in float64, the ranks' sums
-    # are added in float64 and cast to float32 once
-    cnt = _gather_rows(_tile_products(mats, fb, 2, mesh), mesh)
-    partial = edge_sums(fb, _my_columns(cnt, mesh, np_l, b, max_q), qts)
-    dist.all_reduce(partial, group=col_group)
-    edge_counts = partial.to(torch.float32)
+        # RIG edge counts: one more sum-semantics pass over the forward
+        # matrices; each rank sums its node range in float64, the ranks'
+        # sums are added in float64 and cast to float32 once
+        cnt = _gather_rows(_tile_products(mats, fb, 2, mesh), mesh)
+        partial = edge_sums(fb, _my_columns(cnt, mesh, np_l, b, max_q), qts)
+        dist.all_reduce(partial, group=col_group)
+        edge_counts = partial.to(torch.float32)
 
-    # candidate compaction: every member of the global top-K is in its own
-    # shard's local top-K, so take a local top-K per model shard,
-    # all-gather the (small) (n_shards · K) id/flag lists, and merge with
-    # one top-K.  Scores put set bits first, lower ids first.
-    n_pad = n_model * np_l
-    col_id = mesh.get_local_rank(col)
-    ids = torch.arange(np_l, dtype=torch.int32, device=fb.device)
-    scores = fb.to(torch.int32) * (np_l + 1) - ids
-    _, idx_loc = torch.topk(scores, min(top_k, np_l), dim=2, sorted=True)
-    flag = torch.gather(fb, 2, idx_loc)
-    gid = torch.where(flag, (idx_loc + col_id * np_l).to(torch.int32), -1)
-    gid_all = _all_gather(gid, col_group, 2)
-    flag_all = _all_gather(flag, col_group, 2)
-    merged = torch.where(flag_all, n_pad - gid_all, -1)
-    _, take = torch.topk(merged, top_k, dim=2, sorted=True)
-    candidates = torch.gather(gid_all, 2, take)
-    return ServeStepOut(fb_sizes=sizes, edge_counts=edge_counts,
-                        candidates=candidates)
+        # candidate compaction: every member of the global top-K is in its
+        # own shard's local top-K, so take a local top-K per model shard,
+        # all-gather the (small) (n_shards · K) id/flag lists, and merge
+        # with one top-K.  Scores put set bits first, lower ids first.
+        n_pad = n_model * np_l
+        col_id = mesh.get_local_rank(col)
+        ids = torch.arange(np_l, dtype=torch.int32, device=fb.device)
+        scores = fb.to(torch.int32) * (np_l + 1) - ids
+        _, idx_loc = torch.topk(scores, min(top_k, np_l), dim=2,
+                                sorted=True)
+        flag = torch.gather(fb, 2, idx_loc)
+        gid = torch.where(flag, (idx_loc + col_id * np_l).to(torch.int32),
+                          -1)
+        gid_all = _all_gather(gid, col_group, 2)
+        flag_all = _all_gather(flag, col_group, 2)
+        merged = torch.where(flag_all, n_pad - gid_all, -1)
+        _, take = torch.topk(merged, top_k, dim=2, sorted=True)
+        candidates = torch.gather(gid_all, 2, take)
+        return ServeStepOut(fb_sizes=sizes, edge_counts=edge_counts,
+                            candidates=candidates)
 
 
 # ------------------------------------------------------------ host helpers

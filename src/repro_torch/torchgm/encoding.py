@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.query import PatternQuery
+from ..obs.trace import profiled
 
 PAD = -1
 INF = int(np.iinfo(np.int32).max)
@@ -58,9 +59,10 @@ def encode_query(q: PatternQuery, max_q: int, max_e: int) -> QueryTensor:
 
 def encode_batch(queries: Sequence[PatternQuery], max_q: int,
                  max_e: int) -> QueryTensor:
-    qts = [encode_query(q, max_q, max_e) for q in queries]
-    return QueryTensor(*(torch.stack([getattr(qt, f.name) for qt in qts])
-                         for f in fields(QueryTensor)))
+    with profiled("query.encode"):
+        qts = [encode_query(q, max_q, max_e) for q in queries]
+        return QueryTensor(*(torch.stack([getattr(qt, f.name) for qt in qts])
+                             for f in fields(QueryTensor)))
 
 
 def query_adjacency(qt: QueryTensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 
 from ..dist.meta import host_int
 from ..kernels import ops
+from ..obs.trace import profiled
 from .device_graph import DeviceGraph
 from .encoding import QueryTensor
 
@@ -75,19 +76,21 @@ def apply_edge_masks(fb: torch.Tensor, y: torch.Tensor, n_e: int,
     """FB (Bq, max_q, n) pruned by one pass's products ``y`` (4, Bq,
     max_q, n) bool: forward child / desc, backward child / desc, each
     column a query node's existence test over the same n nodes."""
-    bq = fb.shape[0]
-    src, dst, kind = edges
-    bidx = torch.arange(bq, device=fb.device)
-    keep = torch.ones_like(fb)
-    for e in range(n_e):
-        s, d, k = src[:, e], dst[:, e], kind[:, e]
-        off = ~(k >= 0)[:, None]                  # padding: no constraint
-        kk = k.clamp(0, 1)
-        # forward: nodes in FB(src) need a kind-successor inside FB(dst)
-        keep[bidx, s] &= y[kk, bidx, d] | off
-        # backward: nodes in FB(dst) need a kind-predecessor inside FB(src)
-        keep[bidx, d] &= y[2 + kk, bidx, s] | off
-    return fb & keep
+    with profiled("simulation.masks"):
+        bq = fb.shape[0]
+        src, dst, kind = edges
+        bidx = torch.arange(bq, device=fb.device)
+        keep = torch.ones_like(fb)
+        for e in range(n_e):
+            s, d, k = src[:, e], dst[:, e], kind[:, e]
+            off = ~(k >= 0)[:, None]              # padding: no constraint
+            kk = k.clamp(0, 1)
+            # forward: nodes in FB(src) need a kind-successor inside FB(dst)
+            keep[bidx, s] &= y[kk, bidx, d] | off
+            # backward: nodes in FB(dst) need a kind-predecessor inside
+            # FB(src)
+            keep[bidx, d] &= y[2 + kk, bidx, s] | off
+        return fb & keep
 
 
 def simulate(dg: DeviceGraph, qt: QueryTensor, *, n_passes: int = 4,
@@ -151,14 +154,16 @@ def edge_sums(fb: torch.Tensor, counts: torch.Tensor,
     FB(src) (Bq, max_q, n) of ``counts`` (2, Bq, max_q, n) — child / desc
     successors of v inside FB(dst), float32 — taken in float64 (exact);
     0 on padding edges."""
-    bq = fb.shape[0]
-    _, (src, dst, kind) = _edges(qt, fb.device)
-    bidx = torch.arange(bq, device=fb.device)
-    out = torch.zeros((bq, qt.max_e), dtype=torch.float64, device=fb.device)
-    for e in range(qt.max_e):
-        s, d, k = src[:, e], dst[:, e], kind[:, e]
-        per_node = torch.where((k == 1)[:, None], counts[1][bidx, d],
-                               counts[0][bidx, d])   # (Bq, n)
-        masked = torch.where(fb[bidx, s], per_node.double(), 0.0).sum(-1)
-        out[:, e] = torch.where(k >= 0, masked, 0.0)
-    return out
+    with profiled("simulation.masks"):
+        bq = fb.shape[0]
+        _, (src, dst, kind) = _edges(qt, fb.device)
+        bidx = torch.arange(bq, device=fb.device)
+        out = torch.zeros((bq, qt.max_e), dtype=torch.float64,
+                          device=fb.device)
+        for e in range(qt.max_e):
+            s, d, k = src[:, e], dst[:, e], kind[:, e]
+            per_node = torch.where((k == 1)[:, None], counts[1][bidx, d],
+                                   counts[0][bidx, d])   # (Bq, n)
+            masked = torch.where(fb[bidx, s], per_node.double(), 0.0).sum(-1)
+            out[:, e] = torch.where(k >= 0, masked, 0.0)
+        return out
