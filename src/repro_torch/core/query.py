@@ -158,26 +158,37 @@ class PatternQuery:
         (x, y) is transitive if a directed path x -> y exists that does not
         use it.  Child edges are never removed (they constrain more).
 
-        Edges are examined in a canonical order and the reachability test is
-        recomputed after each removal so that two edges cannot "justify" each
-        other's removal (matters only for cyclic patterns, where the
-        reduction is not unique — we return one valid reduction).
+        Edges are examined in a canonical ``(src, dst)`` order and each test
+        runs against the edges left by the removals before it, so that two
+        edges cannot "justify" each other's removal (matters only for cyclic
+        patterns, where the reduction is not unique — we return one valid
+        reduction).
+
+        One ordered pass suffices: a removal only shrinks reachability, so an
+        edge found not removable stays not removable for the rest of the
+        run, and rescanning from the first edge after each removal would
+        re-test those edges and drop none of them.  The pass works on one
+        out-neighbour bitmask per node (Python ints, any width) and builds
+        a single query at the end.
         """
         with profiled("query.reduce"):
-            edges = list(self.edges)
-            changed = True
-            while changed:
-                changed = False
-                for e in sorted((e for e in edges if e.kind == DESC),
-                                key=lambda e: (e.src, e.dst)):
-                    q = PatternQuery(labels=list(self.labels),
-                                     edges=[x for x in edges if x != e])
-                    if q.reachable_matrix()[e.src, e.dst]:
-                        edges = q.edges
-                        changed = True
-                        break
+            out = [0] * self.n
+            for e in self.edges:
+                out[e.src] |= 1 << e.dst
+            dropped = set()
+            for e in self.edges:   # in (src, dst) order (__post_init__)
+                if e.kind != DESC:
+                    continue
+                bit = 1 << e.dst
+                out[e.src] &= ~bit
+                if _reaches(out, e.src, bit):
+                    dropped.add(e)
+                else:
+                    out[e.src] |= bit
             name = (self.name + "+tr") if self.name else "tr"
-            return PatternQuery(labels=list(self.labels), edges=edges,
+            return PatternQuery(labels=list(self.labels),
+                                edges=[e for e in self.edges
+                                       if e not in dropped],
                                 name=name)
 
     # ----------------------------------------------------- dag decomposition
@@ -236,6 +247,24 @@ class PatternQuery:
         lab = ",".join(map(str, self.labels))
         ed = " ".join(map(repr, self.edges))
         return f"PatternQuery<{self.name}|labels=[{lab}]|{ed}>"
+
+
+def _reaches(out: List[int], src: int, target: int) -> bool:
+    """Whether a path of one or more edges leads from ``src`` into the
+    node bitmask ``target``, over the out-neighbour bitmasks ``out``."""
+    seen = 0
+    frontier = out[src]
+    while frontier:
+        if frontier & target:
+            return True
+        seen |= frontier
+        nxt = 0
+        while frontier:
+            low = frontier & -frontier
+            nxt |= out[low.bit_length() - 1]
+            frontier ^= low
+        frontier = nxt & ~seen
+    return False
 
 
 def query(labels: Sequence[int], edges: Sequence[Tuple[int, int, int]],
