@@ -47,7 +47,7 @@ from ..obs.export import prometheus_text, render_trace
 from ..obs.flight import FlightRecorder
 from ..obs.ledger import get_ledger
 from ..obs.metrics import MetricsRegistry
-from ..obs.trace import NULL_TRACER, Span, Tracer
+from ..obs.trace import NULL_TRACER, Span, Tracer, profiled
 from ..obs.window import WindowedAggregator
 from ..robust import Budget, CircuitBreaker
 from ..robust.errors import (BreakerOpen, DeadlineExceeded, DeviceFailure,
@@ -100,6 +100,11 @@ class EngineOptions:
     resident_max_bytes: int = 1 << 30
     limit: Optional[int] = DEFAULT_LIMIT
     materialize: bool = True
+    # the device lane pages MJoin levels wider than ``capacity`` on the
+    # card and stops at ``limit`` (stats.truncated) instead of re-running
+    # an overflowed query on the host; counts only (materialize=False),
+    # and needs capacity >= the graph's padded node count
+    page_on_device: bool = False
     # resource governance: the default per-query Budget *template*
     # (armed per execution; None = ungoverned) and the engine's device
     # circuit breaker (None = a default CircuitBreaker; shared by every
@@ -355,7 +360,9 @@ class _Resident:
             self._jgm = TorchGM(self.ctx.graph, max_q=o.max_q,
                                 max_e=o.max_e, capacity=o.capacity,
                                 exact_sim=o.exact_sim,
-                                use_transitive_reduction=False)
+                                use_transitive_reduction=False,
+                                limit=o.limit,
+                                page_on_device=o.page_on_device)
         return self._jgm
 
 
@@ -877,6 +884,7 @@ class Engine:
         jgm = res.jgm()
         stats.sim_passes = 0 if jgm.exact_sim else jgm.n_passes
         stats.rig_nodes = int(np.sum(dev.fb_sizes))
+        stats.truncated = dev.truncated
         self.counters["device_exec"] += 1
         if dev.overflowed:
             if trace.enabled:
@@ -1146,6 +1154,12 @@ class Engine:
            gathers into a single ``(ΣF, K, W)`` slab per round; remaining
            host queries run sequentially.
         """
+        with profiled("engine.execute_many"):
+            return self._execute_many(queries, graph=graph, profile=profile,
+                                      budget=budget)
+
+    def _execute_many(self, queries, *, graph, profile,
+                      budget) -> List[EngineResult]:
         items: List[Tuple[QueryLike, Optional[DataGraph]]] = []
         for item in queries:
             if isinstance(item, tuple):

@@ -77,11 +77,13 @@ def _segments(live: int) -> int:
 
 
 def _expand(rows, fb, idx, n_alive, *, w_all, f, k, n_i, size, expand,
-            name):
+            name, scan=False):
     """Launch the segment kernels: pass 1 counts each (row, segment), the
     int64 scan of the counts gives every segment its first pair slot, and
     pass 2 (when ``expand``) writes the first ``size`` pairs.  Returns
-    (total int64 0-d, rid, cid) on the rows' device; no host sync."""
+    (total int64 0-d, rid, cid) on the rows' device, and with ``scan`` the
+    rows' inclusive scan too (each row's last segment's entry of the
+    segments' scan); no host sync."""
     dev = rows.device
     live = min(w_all, (n_i + 31) // 32)
     nseg = _segments(live)
@@ -104,12 +106,14 @@ def _expand(rows, fb, idx, n_alive, *, w_all, f, k, n_i, size, expand,
                               ptr(n_alive), counts.data_ptr(), w_all, f, k,
                               live, n_i, nseg, gather, stream),
                      f"{name} (segment counts)")
-        if not expand:
+        if not expand and not scan:
             return counts.sum(dtype=torch.int64), None, None
-        if size == 0:
-            empty = torch.zeros((0,), dtype=torch.int32, device=dev)
-            return counts.sum(dtype=torch.int64), empty, empty.clone()
         incl = torch.cumsum(counts, dim=0, dtype=torch.int64)
+        rows_incl = (incl.view(f, nseg)[:, -1],) if scan else ()
+        if not expand or size == 0:
+            pairs = ([torch.zeros((0,), dtype=torch.int32, device=dev)
+                      for _ in range(2)] if expand else [None, None])
+            return (incl[-1], *pairs, *rows_incl)
         rid = torch.empty((size,), dtype=torch.int32, device=dev)
         cid = torch.empty((size,), dtype=torch.int32, device=dev)
         _build.check(write_fn(rows.data_ptr(), ptr(fb), ptr(idx),
@@ -118,7 +122,7 @@ def _expand(rows, fb, idx, n_alive, *, w_all, f, k, n_i, size, expand,
                               cid.data_ptr(), w_all, f, k, live, n_i, nseg,
                               size, gather, stream),
                      f"{name} (segment write)")
-    return incl[-1], rid, cid
+    return (incl[-1], rid, cid, *rows_incl)
 
 
 def expand_pairs(and_rows: torch.Tensor, *, n_i: int, size: int
@@ -149,9 +153,8 @@ def expand_pairs(and_rows: torch.Tensor, *, n_i: int, size: int
 
 def gather_expand(mats: torch.Tensor, fb_row: torch.Tensor,
                   idx: torch.Tensor, n_alive: torch.Tensor, *, n_i: int,
-                  size: int, expand: bool = True
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                             Optional[torch.Tensor]]:
+                  size: int, expand: bool = True, scan: bool = False
+                  ) -> Tuple[Optional[torch.Tensor], ...]:
     """One level of the whole-graph enumerator.
 
     mats: int32 lanes (R, W), the stacked matrices' flat view; fb_row:
@@ -165,7 +168,9 @@ def gather_expand(mats: torch.Tensor, fb_row: torch.Tensor,
     Returns (total, rid, cid): total, the int64 0-d count of the live
     rows' set bits; with ``expand``, the first ``size`` ``(row, column)``
     pairs in row-major order as :func:`expand_pairs` gives them (without,
-    None and None).  Nothing waits for the device."""
+    None and None).  With ``scan`` a fourth tensor follows: the int64
+    (F,) inclusive scan of the rows' counts, which the paging enumerator
+    cuts a level's rows by.  Nothing waits for the device."""
     _check.lanes(mats, "mats", 2)
     _check.lanes(fb_row, "fb_row", 1)
     _check.lanes(idx, "idx", 2)
@@ -187,12 +192,15 @@ def gather_expand(mats: torch.Tensor, fb_row: torch.Tensor,
         raise ValueError(f"size must be >= 0, got {size}")
     if dev.type == "cpu":
         return gather_expand_ref(mats, fb_row, idx, n_alive, n_i=n_i,
-                                 size=size, expand=expand)
+                                 size=size, expand=expand, scan=scan)
     if f == 0:
         pairs = [torch.zeros((size,), dtype=torch.int32, device=dev)
                  if expand else None for _ in range(2)]
-        return torch.zeros((), dtype=torch.int64, device=dev), *pairs
+        rows_incl = ((torch.zeros((0,), dtype=torch.int64, device=dev),)
+                     if scan else ())
+        return (torch.zeros((), dtype=torch.int64, device=dev), *pairs,
+                *rows_incl)
     out = _expand(mats, fb_row, idx, n_alive, w_all=w, f=f, k=k, n_i=n_i,
-                  size=size, expand=expand, name="gather_expand")
+                  size=size, expand=expand, name="gather_expand", scan=scan)
     _build.count_launch("gather_expand")
     return out

@@ -180,19 +180,22 @@ def gather_level_ref(mats: torch.Tensor, fb_row: torch.Tensor,
 
 def gather_expand_ref(mats: torch.Tensor, fb_row: torch.Tensor,
                       idx: torch.Tensor, n_alive: torch.Tensor, *, n_i: int,
-                      size: int, expand: bool = True
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                 Optional[torch.Tensor]]:
+                      size: int, expand: bool = True, scan: bool = False
+                      ) -> Tuple[Optional[torch.Tensor], ...]:
     """One level of the whole-graph enumerator: the candidate row
     ``fb_row`` (int32 lanes (W,)) ANDed, for each frontier row f below
     ``n_alive`` (an int64 0-d tensor), with the rows ``mats[idx[f, k]]``
     (mats int32 lanes (R, W), idx int32 (F, Kc), Kc >= 0) -> (total: the
     int64 0-d count of those rows' set bits below column ``n_i``; with
     ``expand``, their first ``size`` ``(row, column)`` pairs as
-    :func:`expand_pairs_ref` gives them, else None and None)."""
+    :func:`expand_pairs_ref` gives them, else None and None; with
+    ``scan``, fourth, the int64 (F,) inclusive scan of the rows'
+    counts)."""
     cand = gather_level_ref(mats, fb_row, idx, n_alive, n_i=n_i)
-    total = packed.popcount(cand).sum(dtype=torch.int64)
+    per_row = packed.popcount(cand).sum(dim=1, dtype=torch.int64)
+    total = per_row.sum()
+    rows_incl = (torch.cumsum(per_row, dim=0),) if scan else ()
     if not expand:
-        return total, None, None
+        return (total, None, None, *rows_incl)
     rid, cid = expand_pairs_ref(cand, n_i=n_i, size=size)
-    return total, rid, cid
+    return (total, rid, cid, *rows_incl)

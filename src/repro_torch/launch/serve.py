@@ -62,6 +62,7 @@ from ..data.queries import random_query_from_graph
 from ..engine import Engine, EngineOptions, QueryParseError, render_trace
 from ..engine.engine import _CounterView
 from ..obs import ServerEvent, Span
+from ..obs.trace import profiled
 from ..robust import Budget, InjectedFault, TransientError, faults
 from ..torchgm import frontier
 
@@ -84,6 +85,7 @@ class Request:
     outcome: str = ""               # engine status of the served result
     count: Optional[int] = None
     overflowed: bool = False
+    truncated: bool = False         # the count stopped at the limit
     backend: str = ""
     error: str = ""                 # last failure detail (retries, give-up)
     trace: Optional[Span] = None    # lifecycle span tree (profiling servers)
@@ -118,6 +120,9 @@ class QueryServer:
         self.budget = budget            # per-request template (armed by the
         self.queue_limit = queue_limit  # engine for each batch member)
         self.journal: Dict[int, Request] = {}
+        # the journal's requests not yet terminal, in submission order:
+        # what ``_pending`` walks (the journal keeps every request)
+        self._live: Dict[int, Request] = {}
         self.rejected: Dict[int, str] = {}      # rid -> rejection message
         # server counters share the engine's registry (series server_*), so
         # one metrics dump covers the whole serving stack; the dict-style
@@ -176,7 +181,12 @@ class QueryServer:
                     self.flight.record(ServerEvent(action="reject", rid=rid,
                                                    detail="parse error"))
                 return False
-        self.journal[rid] = Request(rid=rid, query=query)
+        again = rid in self.journal and rid not in self._live
+        r = self.journal[rid] = Request(rid=rid, query=query)
+        self._live[rid] = r
+        if again:       # a finished id resubmitted keeps its journal place
+            self._live = {k: v for k, v in self.journal.items()
+                          if k in self._live}
         return True
 
     def _pending(self) -> List[Request]:
@@ -184,8 +194,9 @@ class QueryServer:
         request whose attempts are spent becomes ``status="failed"``
         (``server_failed``) instead of circulating forever."""
         out = []
-        for r in self.journal.values():
+        for rid, r in list(self._live.items()):
             if r.status in _TERMINAL:
+                del self._live[rid]
                 continue
             if r.attempts >= self.max_attempts:
                 r.status = "failed"
@@ -193,6 +204,7 @@ class QueryServer:
                            or f"gave up after {r.attempts} attempt(s)")
                 self.stats["failed"] += 1
                 self._record_server_event("failed", r)
+                del self._live[rid]
                 continue
             out.append(r)
         return out
@@ -202,6 +214,10 @@ class QueryServer:
         injected fault) simulates a worker dying mid-batch — the requests
         stay journaled, the attempt is spent, and the next step
         re-dispatches them."""
+        with profiled("server.step"):
+            return self._step(fail)
+
+    def _step(self, fail: bool) -> int:
         batch = self._pending()[:self.batch_size]
         if not batch:
             return 0
@@ -261,6 +277,7 @@ class QueryServer:
             # re-running the same budget would blow the same deadline
             r.count = res.count
             r.overflowed = res.stats.overflow_fallback
+            r.truncated = res.stats.truncated
             r.backend = res.stats.backend
             r.outcome = st
             r.trace = res.trace

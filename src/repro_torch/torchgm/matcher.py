@@ -13,6 +13,11 @@ ending at the host read of its result (the FB sizes, the count), which
 waits for the device.  The device-graph build, upload and on-device
 closure are on the matcher (``build_s``, ``upload_s``, ``closure_s``,
 ``upload_bytes``).
+
+With ``page_on_device`` the enumeration pages levels wider than
+``capacity`` on the card instead of reporting an overflow, and stops at
+``limit`` matches (``truncated``; see ``torchgm.enumerate``).  The
+simulation is the ``torch.profiler`` range ``repro_torch.matcher.simulate``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 
 from ..core.graph import DataGraph
 from ..core.query import PatternQuery
+from ..obs.trace import profiled
 from . import device_graph
 from .encoding import encode_batch, encode_query, jo_order
 from .enumerate import decode_tuples, mjoin_count
@@ -41,6 +47,7 @@ class TorchMatchResult:
     sim_s: float = 0.0            # double simulation (a batch's, shared)
     sim_passes: int = 0
     enumerate_s: float = 0.0      # this query's MJoin
+    truncated: bool = False       # paged: the count stopped at the limit
 
 
 class TorchGM:
@@ -49,16 +56,20 @@ class TorchGM:
     pinned; without CUDA and without a pin, construction raises).  With
     ``closure_on_device`` the reachability matrices are squared out of the
     adjacency on the device (``closure_step``) instead of being built by
-    the host reachability index."""
+    the host reachability index.  ``limit`` and ``page_on_device`` go to
+    the enumerator (:func:`~repro_torch.torchgm.enumerate.mjoin_count`);
+    paging needs ``capacity`` >= the padded node count."""
 
     def __init__(self, graph: DataGraph, *, max_q: int = 8, max_e: int = 16,
                  block: int = 512, capacity: int = 4096, n_passes: int = 4,
                  exact_sim: bool = False, closure_on_device: bool = False,
-                 use_transitive_reduction: bool = True, device=None):
+                 use_transitive_reduction: bool = True, device=None,
+                 limit: Optional[int] = None, page_on_device: bool = False):
         self.device = resolve(device)
         self.graph = graph
         self.max_q, self.max_e = max_q, max_e
         self.capacity, self.n_passes = capacity, n_passes
+        self.limit, self.page_on_device = limit, page_on_device
         self.exact_sim = exact_sim
         self.use_tr = use_transitive_reduction
         self.dg = device_graph.from_host(graph, block=block,
@@ -76,16 +87,18 @@ class TorchGM:
 
     def _simulate(self, qt):
         t0 = time.perf_counter()
-        fb, passes = simulate(self.dg, qt, n_passes=self.n_passes,
-                              exact=self.exact_sim)
-        sizes = fb_sizes(fb).cpu()
+        with profiled("matcher.simulate"):
+            fb, passes = simulate(self.dg, qt, n_passes=self.n_passes,
+                                  exact=self.exact_sim)
+            sizes = fb_sizes(fb).cpu()
         return fb, sizes, passes, time.perf_counter() - t0
 
     def _enumerate(self, qt, fb, sizes, materialize: bool):
         t0 = time.perf_counter()
         order = jo_order(qt, sizes)
         res = mjoin_count(self.dg, qt, fb, order, capacity=self.capacity,
-                          materialize=materialize)
+                          materialize=materialize, limit=self.limit,
+                          page_on_device=self.page_on_device)
         count, overflowed = int(res.count), bool(res.overflowed)
         return res, order, count, overflowed, time.perf_counter() - t0
 
@@ -99,7 +112,7 @@ class TorchGM:
         return TorchMatchResult(count=count, overflowed=overflowed,
                                 fb_sizes=sizes.numpy()[:q.n], tuples=tuples,
                                 sim_s=sim_s, sim_passes=passes,
-                                enumerate_s=enum_s)
+                                enumerate_s=enum_s, truncated=res.truncated)
 
     def match_batch(self, queries: Sequence[PatternQuery]
                     ) -> List[TorchMatchResult]:
@@ -109,12 +122,13 @@ class TorchGM:
         out = []
         for i, q in enumerate(prepped):
             qt = encode_query(q, self.max_q, self.max_e)
-            _, _, count, overflowed, enum_s = self._enumerate(
+            res, _, count, overflowed, enum_s = self._enumerate(
                 qt, fb[i], sizes[i], materialize=False)
             out.append(TorchMatchResult(
                 count=count, overflowed=overflowed,
                 fb_sizes=sizes[i].numpy()[:q.n], sim_s=sim_s,
-                sim_passes=passes, enumerate_s=enum_s))
+                sim_passes=passes, enumerate_s=enum_s,
+                truncated=res.truncated))
         return out
 
     def rig_stats(self, q: PatternQuery):
